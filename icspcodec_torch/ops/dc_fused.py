@@ -1,0 +1,74 @@
+"""Forward DC DPCM chain: CUDA kernel B (csrc/dc_dpcm.cu) and its plain
+version.
+
+Counterpart of icspcodec_tpu/ops/pallas_dc.py::dc_dpcm_fused.  On a CPU
+tensor the wrapper runs the plain version (engine/wavefront.dc_dpcm_scan);
+on a CUDA tensor it launches the kernel or raises.  The two are
+bit-identical in float32 and float64.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..engine.wavefront import dc_dpcm_scan
+from ..tables import chroma_dc_kind, luma_dc_kind
+from . import _build
+
+launches = 0  # kernel launches, for showing that a run went through it
+_kinds: dict = {}
+
+
+def _lib():
+    lib = _build.load("dc_dpcm")
+    fn = lib.icsp_dc_dpcm_fwd
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, p, i, i, i, i, i, p, p, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _kind_grid(gh: int, gw: int, chroma: bool, device) -> torch.Tensor:
+    key = (gh, gw, chroma, str(device))
+    if key not in _kinds:
+        grid = (chroma_dc_kind if chroma else luma_dc_kind)(gh, gw)
+        _kinds[key] = torch.from_numpy(grid).to(device)
+    return _kinds[key]
+
+
+def dc_dpcm_plain(dc: torch.Tensor, qstep: int, chroma: bool):
+    """The plain version: wavefront.dc_dpcm_scan with the chroma or luma
+    kind grid.  Runs on any device."""
+    gh, gw = dc.shape[1:]
+    return dc_dpcm_scan(dc, (chroma_dc_kind if chroma else luma_dc_kind)(gh, gw), qstep, chroma)
+
+
+def dc_dpcm_fused(dc: torch.Tensor, qstep: int, chroma: bool):
+    """dc: (F, gh, gw) float32 or float64 DC values -> (q, dq) int32, the
+    contract of wavefront.dc_dpcm_scan with the chroma or luma kind grid."""
+    global launches
+    fdim, gh, gw = dc.shape
+    if dc.device.type == "cpu":
+        return dc_dpcm_plain(dc, qstep, chroma)
+    if dc.device.type != "cuda":
+        raise ValueError(f"dc_dpcm_fused runs on cpu or cuda tensors, got {dc.device}")
+    if dc.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"dc_dpcm_fused takes float32 or float64 DCs, got {dc.dtype}")
+    if qstep < 1:
+        raise ValueError(f"qstep must be >= 1, got {qstep}")
+    dc = dc.contiguous()
+    q = torch.empty(dc.shape, dtype=torch.int32, device=dc.device)
+    dq = torch.empty_like(q)
+    if fdim == 0:
+        return q, dq
+    kind = _kind_grid(gh, gw, chroma, dc.device)
+    fn = _lib()
+    with torch.cuda.device(dc.device):
+        err = fn(dc.data_ptr(), int(dc.dtype == torch.float64), kind.data_ptr(), fdim,
+                 gh, gw, int(qstep), int(chroma), q.data_ptr(), dq.data_ptr(),
+                 _build.stream_ptr(dc.device))
+    _build.check(err, "dc_dpcm kernel")
+    launches += 1
+    return q, dq
