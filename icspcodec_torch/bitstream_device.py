@@ -87,26 +87,38 @@ def _y_subblocks(arr, lead: int):
     return x.reshape(head + ((gh // 2) * (gw // 2), 4) + rest)
 
 
-def frame_items_dev(syms: dict):
-    """Intra frames' items, in bitstream order: (codes int64, lengths int32)
-    of shape (F, N).  Per MB: 4 luma sub-blocks (mpm flag, mode bit, then
-    the coefficient items), then Cb, then Cr."""
+def frame_items_dev(syms: dict, is_intra: bool):
+    """Frames' items, in bitstream order: (codes int64, lengths int32) of
+    shape (F, N).  Per MB: for an intra frame, 4 luma sub-blocks of (mpm
+    flag, mode bit, coefficient items); for an inter frame, the MV-mode bit
+    and the two MV-difference VLCs (syms["mv_diff"], (F, mbh, mbw, 2)),
+    then the 4 luma sub-blocks' coefficient items; then Cb, then Cr."""
     f = syms["y_scan"].shape[0]
     ysc = _y_subblocks(syms["y_scan"], 1)
     yac = _y_subblocks(syms["y_acflag"], 1)
     nmb = ysc.shape[1]
     yc, yl = _coeff_block_items(ysc, yac)
-    mpm = _y_subblocks(syms["mpm"], 1).to(torch.int64)
-    bit = _y_subblocks(syms["mode_bit"], 1).to(torch.int64)
-    yc = torch.cat([mpm[..., None], bit[..., None], yc], dim=3)
-    yl = torch.cat([torch.ones((f, nmb, 4, 2), dtype=torch.int32, device=yl.device), yl],
-                   dim=3)
+    dev = yl.device
+    if is_intra:
+        mpm = _y_subblocks(syms["mpm"], 1).to(torch.int64)
+        bit = _y_subblocks(syms["mode_bit"], 1).to(torch.int64)
+        yc = torch.cat([mpm[..., None], bit[..., None], yc], dim=3)
+        yl = torch.cat([torch.ones((f, nmb, 4, 2), dtype=torch.int32, device=dev), yl], dim=3)
+        head_c = torch.zeros((f, nmb, 0), dtype=torch.int64, device=dev)
+        head_l = torch.zeros((f, nmb, 0), dtype=torch.int32, device=dev)
+    else:
+        mvd = syms["mv_diff"].reshape(f, nmb, 2)
+        mvx_c, mvx_l = vlc_encode_dev(mvd[..., 0])
+        mvy_c, mvy_l = vlc_encode_dev(mvd[..., 1])
+        one = torch.ones((f, nmb), dtype=torch.int64, device=dev)
+        head_c = torch.stack([one, mvx_c, mvy_c], dim=2)
+        head_l = torch.stack([one.to(torch.int32), mvx_l, mvy_l], dim=2)
     cbc, cbl = _coeff_block_items(syms["cb_scan"].reshape(f, nmb, 64),
                                   syms["cb_acflag"].reshape(f, nmb))
     crc, crl = _coeff_block_items(syms["cr_scan"].reshape(f, nmb, 64),
                                   syms["cr_acflag"].reshape(f, nmb))
-    all_c = torch.cat([yc.reshape(f, nmb, -1), cbc, crc], dim=2).reshape(f, -1)
-    all_l = torch.cat([yl.reshape(f, nmb, -1), cbl, crl], dim=2).reshape(f, -1)
+    all_c = torch.cat([head_c, yc.reshape(f, nmb, -1), cbc, crc], dim=2).reshape(f, -1)
+    all_l = torch.cat([head_l, yl.reshape(f, nmb, -1), cbl, crl], dim=2).reshape(f, -1)
     return all_c, all_l
 
 

@@ -1,21 +1,23 @@
-"""Intra frame engine: batched whole-frame encode.
+"""Intra frame engine: batched whole-frame encode and decode.
 
 Everything embarrassingly parallel (chroma DCT, AC quantization, IDCT,
 plane assembly) is one batched tensor op over all blocks of all frames;
-the two sequential chains go through the kernel wrappers: the luma pixel
-wavefront (ops/intra_fused.py, kernel A) and the chroma DC chain
-(ops/dc_fused.py, kernel B).  Each wrapper runs its CUDA kernel on a CUDA
-tensor and its plain version on a CPU tensor, in float32 and float64.
+the sequential chains go through the kernel wrappers: the luma pixel
+wavefronts (ops/intra_fused.py, kernel A, to encode; ops/intra_decode_fused.py,
+kernel C, to decode) and the chroma DC chains (ops/dc_fused.py, kernels B
+and B').  Each wrapper runs its CUDA kernel on a CUDA tensor and its plain
+version on a CPU tensor, in float32 and float64.
 """
 from __future__ import annotations
 
 import torch
 
-from ..constants import COS_ENC
-from ..ops.dc_fused import dc_dpcm_fused
+from ..constants import COS_DEC, COS_ENC
+from ..ops.dc_fused import dc_dpcm_fused, idc_dpcm_fused
+from ..ops.intra_decode_fused import intra_luma_decode_fused
 from ..ops.intra_fused import intra_luma_scan_fused
 from ..ops.quant import ac_flag, c_trunc, dequant_block, quant_block
-from ..ops.scanorder import zigzag
+from ..ops.scanorder import izigzag, zigzag
 from ..ops.transforms import fdct, idct
 
 
@@ -80,4 +82,34 @@ def encode_intra_frames(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor, qdc
             out[f"recon_{name}"] = rec[sl]
         out[f"{name}_scan"] = c["scan"][sl].to(torch.int16)
         out[f"{name}_acflag"] = c["acflag"][sl].to(torch.int8)
+    return out
+
+
+def decode_chroma_idct(cb_scan: torch.Tensor, cr_scan: torch.Tensor, qdc: int, qac: int,
+                       table=COS_DEC, dtype=torch.float64) -> torch.Tensor:
+    """Inverse chroma chain of Cb and Cr stacked into one batch (one DC chain
+    launch): (F, ch, cw, 64) symbols each -> the float inverse-DCT output
+    (2F, ch, cw, 8, 8), which callers turn into pixels their own way."""
+    qc = izigzag(torch.cat([cb_scan, cr_scan]).to(torch.int32))
+    iqc = dequant_block(qc, qdc, qac)
+    iqc[..., 0, 0] = idc_dpcm_fused(iqc[..., 0, 0], chroma=True)
+    return idct(iqc, table=table, dtype=dtype)
+
+
+def decode_intra_frames(y_scan, mpm, mode_bit, cb_scan, cr_scan, qdc: int, qac: int,
+                        table=COS_DEC, dtype=torch.float64):
+    """Inverse pipeline for a batch of intra frames (symbols -> planes).
+
+    y_scan: (F, gh, gw, 64) zig-zag symbols; mpm / mode_bit (F, gh, gw);
+    cb/cr_scan (F, gh/2, gw/2, 64).  Luma goes through kernel C, Cb and Cr
+    through the inverse DC chain (kernel B') and the batched IDCT.  Returns
+    dict(y, cb, cr) of uint8 planes."""
+    out = dict(y=intra_luma_decode_fused(y_scan, mpm, mode_bit, qdc, qac, table=table,
+                                         dtype=dtype))
+    f = cb_scan.shape[0]
+    # intra chroma recon = clamp((int)idct) (intraImgReconstruct: truncation
+    # toward zero, then clamp)
+    r = decode_chroma_idct(cb_scan, cr_scan, qdc, qac, table=table, dtype=dtype)
+    rec = from_blocks(torch.clamp(c_trunc(r), 0, 255).to(torch.uint8))
+    out["cb"], out["cr"] = rec[:f], rec[f:]
     return out

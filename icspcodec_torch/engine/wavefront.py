@@ -1,8 +1,8 @@
 """Plain PyTorch wavefronts of the sequentially dependent codec stages.
 
 These are the reference formulations the CUDA kernels are held against
-(ops/dc_fused.py, ops/intra_fused.py), and what those wrappers run on a
-CPU tensor.
+(ops/dc_fused.py, ops/intra_fused.py, ops/intra_decode_fused.py), and what
+those wrappers run on a CPU tensor.
 
 The reference walks macroblocks in raster order, but every sequential
 dependency (intra pixel prediction from reconstructed neighbours, the
@@ -21,6 +21,8 @@ DC predictor kinds (tables.luma_dc_kind / chroma_dc_kind): 0 -> 1024,
 1 -> left, 2 -> upper, 3 -> med(l, ul, u), 4 -> med(l, u, ur).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -44,9 +46,11 @@ def _dc_pred(kind, l, ul, u, ur):
     )
 
 
-def _diagonals(gh: int, gw: int, device):
+@functools.lru_cache(maxsize=None)
+def _diagonals(gh: int, gw: int, device: torch.device):
     """Per diagonal: (gy, gx, gy-1, gx-1, gx+1) index tensors of its cells,
-    clamped to the grid, from the packed layout of tables.py."""
+    clamped to the grid, from the packed layout of tables.py; made on the
+    device once per grid."""
     nsteps, _, pack_idx, _, _, _ = diag_layout(gh, gw)
     valid = intra_lane_tables(gh, gw)[0]
     out = []
@@ -79,6 +83,23 @@ def dc_dpcm_scan(dc: torch.Tensor, kind: np.ndarray, qstep: int, chroma: bool):
         q[:, gy, gx] = qv
         dq[:, gy, gx] = qv * qstep + pred
     return q, dq
+
+
+def idc_dpcm_scan(iq_dc: torch.Tensor, kind: np.ndarray):
+    """Inverse DC chain (decoder): dq = iq + predictor, along the wavefront.
+
+    iq_dc: (F, gh, gw) integer dequantized DC residuals.  Returns the
+    reconstructed dequantized DC field (F, gh, gw) int32.
+    """
+    fdim, gh, gw = iq_dc.shape
+    kind_t = torch.from_numpy(np.asarray(kind, np.int32)).to(iq_dc.device)
+    iq = iq_dc.to(torch.int32)
+    dq = torch.zeros_like(iq)
+    for gy, gx, gyu, gxl, gxr in _diagonals(gh, gw, iq_dc.device):
+        pred = _dc_pred(kind_t[gy, gx][None], dq[:, gy, gxl], dq[:, gyu, gxl],
+                        dq[:, gyu, gx], dq[:, gyu, gxr])
+        dq[:, gy, gx] = iq[:, gy, gx] + pred
+    return dq
 
 
 def intra_luma_scan_packed(orig: torch.Tensor, qdc: int, qac: int,
@@ -176,3 +197,56 @@ def intra_luma_scan_packed(orig: torch.Tensor, qdc: int, qac: int,
         mbit[:, gy, gx] = bit
     return dict(recon=recon, scan=scanq, mpm=mpmf, mode_bit=mbit)
 
+
+def intra_luma_decode_scan_packed(r: torch.Tensor, mpmf: torch.Tensor, mbit: torch.Tensor,
+                                  dtype=torch.float64):
+    """Reconstruct intra luma pixels from inverse-DCT blocks and mode bits.
+
+    r: (F, gh, gw, 8, 8) float inverse-DCT output (DC chain already applied);
+    mpmf / mbit: (F, gh, gw) MPM flag and remainder bit.  Returns recon
+    blocks (F, gh, gw, 8, 8) int32: the contract of the JAX package's
+    intra_luma_decode_scan_packed, computed expression for expression.  The
+    mode is the MPM prediction when the flag is set, else the remainder bit
+    picks one of the other two modes (IDPCM_pix_block dec src:3643-3990).
+    """
+    fdim, gh, gw = r.shape[:3]
+    dev = r.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    rc = torch.zeros((fdim, gh, gw, 8), **i32)     # right pixel column
+    br = torch.zeros((fdim, gh, gw, 8), **i32)     # bottom pixel row
+    modes = torch.zeros((fdim, gh, gw), **i32)
+    recon = torch.zeros((fdim, gh, gw, 8, 8), **i32)
+    rd = r.to(dtype)
+    for gy, gx, gyu, gxl, _ in _diagonals(gh, gw, dev):
+        has_up = (gy > 0)[None]                       # (1, N)
+        has_left = (gx > 0)[None]
+        first = ~has_up & ~has_left
+        up_row = br[:, gyu, gx]                       # (F, N, 8)
+        left_col = rc[:, gy, gxl]
+        l_md, u_md, ul_md = modes[:, gy, gxl], modes[:, gyu, gx], modes[:, gyu, gxl]
+        pred_mode = torch.where(has_up & has_left, median3(l_md, ul_md, u_md),
+                                torch.where(has_left, l_md, u_md))
+        fl = mpmf[:, gy, gx]
+        bt = mbit[:, gy, gx]
+        lo = torch.where(pred_mode == 0, 1, 0)
+        hi = torch.where(pred_mode == 2, 1, 2)
+        mode = torch.where(first, 2, torch.where(fl == 1, pred_mode,
+                                                 torch.where(bt == 0, lo, hi))).to(torch.int32)
+
+        lsum = torch.where(has_left, left_col.sum(-1, dtype=torch.int32), 1024)
+        usum = torch.where(has_up, up_row.sum(-1, dtype=torch.int32), 1024)
+        m = mode[..., None, None]
+        rr = rd[:, gy, gx]
+        pred0 = torch.where(has_up[..., None, None], up_row[..., None, :].to(dtype),
+                            128.0).expand(rr.shape)
+        pred1 = torch.where(has_left[..., None, None], left_col[..., :, None].to(dtype),
+                            128.0).expand(rr.shape)
+        pv = ((lsum + usum).to(dtype) / 16.0)[..., None, None]
+        predsel = torch.where(m == 0, pred0, torch.where(m == 1, pred1, pv))
+        rec = torch.clamp(c_trunc(rr + predsel), 0, 255)
+
+        recon[:, gy, gx] = rec
+        rc[:, gy, gx] = rec[..., :, 7]
+        br[:, gy, gx] = rec[..., 7, :]
+        modes[:, gy, gx] = mode
+    return recon

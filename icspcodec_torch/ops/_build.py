@@ -1,10 +1,12 @@
-"""Build and load the port's CUDA kernels (csrc/*.cu) at first use.
+"""Build and load the port's native code at first use: the CUDA kernels
+(csrc/*.cu) and the host-side bitstream parser (runtime/*.c).
 
-Each source is compiled by nvcc for sm_90a into a shared library with a
-plain C interface and loaded with ctypes.  The library's file name carries
-a hash of the source and the flags, so an edited source is never served
-by a stale build.  Libraries go to build/icspcodec_torch/ at the root of
-the checkout (.gitignore lists build/).
+A kernel source is compiled by nvcc for sm_90a, a host source by the host C
+compiler, each into a shared library with a plain C interface that is
+loaded with ctypes.  The library's file name carries a hash of the source
+and the flags, so an edited source is never served by a stale build.
+Libraries go to build/icspcodec_torch/ at the root of the checkout
+(.gitignore lists build/).
 """
 from __future__ import annotations
 
@@ -18,9 +20,11 @@ import threading
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
+RUNTIME = _PKG / "runtime"
 BUILD_DIR = _PKG.parent / "build" / "icspcodec_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HOST_CC_FLAGS = ["-O2", "-shared", "-fPIC"]
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -34,21 +38,40 @@ def nvcc() -> str:
                        "and need the CUDA toolkit")
 
 
+def host_cc() -> str:
+    for cand in ("cc", "gcc"):
+        path = shutil.which(cand)
+        if path:
+            return path
+    raise RuntimeError("no host C compiler (cc or gcc) found: the bitstream parser "
+                       "is built at first use")
+
+
+def _source(name: str):
+    """(source path, flags) of a name: csrc/<name>.cu, else runtime/<name>.c."""
+    cu = CSRC / f"{name}.cu"
+    if cu.exists():
+        return cu, NVCC_FLAGS
+    return RUNTIME / f"{name}.c", HOST_CC_FLAGS
+
+
 def _target(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    src, flags = _source(name)
+    tag = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
 def _start(name: str):
-    """Start nvcc for csrc/<name>.cu unless its library exists; returns
-    (target, process or None)."""
+    """Start the compiler for the named source unless its library exists;
+    returns (target, process or None)."""
     out = _target(name)
     if out.exists():
         return out, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    src, flags = _source(name)
+    compiler = nvcc() if src.suffix == ".cu" else host_cc()
+    cmd = [compiler, *flags, "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return out, (proc, tmp)
 
@@ -59,20 +82,20 @@ def _finish(name: str, out: pathlib.Path, job) -> str:
     proc, tmp = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+        raise RuntimeError(f"building {_source(name)[0].name} failed:\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent build sees the old file or the new, never half
     return log
 
 
 def build(names) -> dict[str, str]:
-    """Compile the named sources, all nvcc processes at once; returns each
-    one's compiler output ("" when the library was already built)."""
+    """Compile the named sources, all compiler processes at once; returns
+    each one's compiler output ("" when the library was already built)."""
     jobs = {n: _start(n) for n in names}
     return {n: _finish(n, out, job) for n, (out, job) in jobs.items()}
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes library of csrc/<name>.cu, built first if needed."""
+    """The ctypes library of the named source, built first if needed."""
     with _lock:
         if name not in _libs:
             build([name])

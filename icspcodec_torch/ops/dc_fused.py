@@ -1,10 +1,12 @@
-"""Forward DC DPCM chain: CUDA kernel B (csrc/dc_dpcm.cu) and its plain
-version.
+"""DC DPCM chains: CUDA kernels B (forward) and B' (inverse), two entry
+points of csrc/dc_dpcm.cu, and their plain versions.
 
-Counterpart of icspcodec_tpu/ops/pallas_dc.py::dc_dpcm_fused.  On a CPU
-tensor the wrapper runs the plain version (engine/wavefront.dc_dpcm_scan);
-on a CUDA tensor it launches the kernel or raises.  The two are
-bit-identical in float32 and float64.
+Counterparts of icspcodec_tpu/ops/pallas_dc.py::dc_dpcm_fused and
+idc_dpcm_fused.  On a CPU tensor each wrapper runs its plain version
+(engine/wavefront.dc_dpcm_scan / idc_dpcm_scan); on a CUDA tensor it
+launches its kernel or raises.  B is bit-identical to its plain version in
+float32 and float64; B' is all integer, so bit-identical too.  Each kernel
+has its own launch counter.
 """
 from __future__ import annotations
 
@@ -12,11 +14,12 @@ import ctypes
 
 import torch
 
-from ..engine.wavefront import dc_dpcm_scan
+from ..engine.wavefront import dc_dpcm_scan, idc_dpcm_scan
 from ..tables import chroma_dc_kind, luma_dc_kind
 from . import _build
 
-launches = 0  # kernel launches, for showing that a run went through it
+launches = 0      # kernel B launches, for showing that a run went through it
+launches_inv = 0  # kernel B' launches
 _kinds: dict = {}
 
 
@@ -30,7 +33,17 @@ def _lib():
     return fn
 
 
-def _kind_grid(gh: int, gw: int, chroma: bool, device) -> torch.Tensor:
+def _lib_inv():
+    fn = _build.load("dc_dpcm").icsp_dc_dpcm_inv
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, i, i, i, p, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def kind_grid(gh: int, gw: int, chroma: bool, device) -> torch.Tensor:
+    """The chroma or luma DC kind grid on the device, copied there once."""
     key = (gh, gw, chroma, str(device))
     if key not in _kinds:
         grid = (chroma_dc_kind if chroma else luma_dc_kind)(gh, gw)
@@ -63,7 +76,7 @@ def dc_dpcm_fused(dc: torch.Tensor, qstep: int, chroma: bool):
     dq = torch.empty_like(q)
     if fdim == 0:
         return q, dq
-    kind = _kind_grid(gh, gw, chroma, dc.device)
+    kind = kind_grid(gh, gw, chroma, dc.device)
     fn = _lib()
     with torch.cuda.device(dc.device):
         err = fn(dc.data_ptr(), int(dc.dtype == torch.float64), kind.data_ptr(), fdim,
@@ -72,3 +85,36 @@ def dc_dpcm_fused(dc: torch.Tensor, qstep: int, chroma: bool):
     _build.check(err, "dc_dpcm kernel")
     launches += 1
     return q, dq
+
+
+def idc_dpcm_plain(iq_dc: torch.Tensor, chroma: bool):
+    """The plain version of B': wavefront.idc_dpcm_scan with the chroma or
+    luma kind grid.  Runs on any device."""
+    gh, gw = iq_dc.shape[1:]
+    return idc_dpcm_scan(iq_dc, (chroma_dc_kind if chroma else luma_dc_kind)(gh, gw))
+
+
+def idc_dpcm_fused(iq_dc: torch.Tensor, chroma: bool):
+    """iq_dc: (F, gh, gw) integer dequantized DC residuals -> dq (F, gh, gw)
+    int32, the contract of wavefront.idc_dpcm_scan with the chroma or luma
+    kind grid."""
+    global launches_inv
+    fdim, gh, gw = iq_dc.shape
+    if iq_dc.device.type == "cpu":
+        return idc_dpcm_plain(iq_dc, chroma)
+    if iq_dc.device.type != "cuda":
+        raise ValueError(f"idc_dpcm_fused runs on cpu or cuda tensors, got {iq_dc.device}")
+    if iq_dc.dtype.is_floating_point or iq_dc.dtype == torch.bool:
+        raise TypeError(f"idc_dpcm_fused takes integer residuals, got {iq_dc.dtype}")
+    iq = iq_dc.to(torch.int32).contiguous()
+    dq = torch.empty_like(iq)
+    if fdim == 0:
+        return dq
+    kind = kind_grid(gh, gw, chroma, iq.device)
+    fn = _lib_inv()
+    with torch.cuda.device(iq.device):
+        err = fn(iq.data_ptr(), kind.data_ptr(), fdim, gh, gw, dq.data_ptr(),
+                 _build.stream_ptr(iq.device))
+    _build.check(err, "idc_dpcm kernel")
+    launches_inv += 1
+    return dq

@@ -16,11 +16,27 @@ Two paths, chosen by dtype:
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from ..constants import COS_ENC, IRT2
 from ..tables import fdct_matrix, idct_matrix, table_key
+
+
+@functools.lru_cache(maxsize=None)
+def _device_const(data: bytes, shape: tuple, device: torch.device,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """A float64 numpy constant (given as its bytes) on the device, copied
+    there once."""
+    arr = np.frombuffer(data, np.float64).reshape(shape)
+    return torch.from_numpy(arr.copy()).to(device=device, dtype=dtype)
+
+
+def _const(arr: np.ndarray, device, dtype=torch.float64) -> torch.Tensor:
+    arr = np.ascontiguousarray(arr, np.float64)
+    return _device_const(arr.tobytes(), arr.shape, torch.device(device), dtype)
 
 
 def _mm_exact(a: torch.Tensor, rowsel, ct_cols) -> torch.Tensor:
@@ -36,7 +52,7 @@ def _matmul_fast(a: torch.Tensor, m: np.ndarray) -> torch.Tensor:
     """(..., 8, 8) float32 blocks times the float32 64x64 matrix m; on the
     card summed in float64 and rounded once, whatever the TF32 setting."""
     wide = torch.float64 if a.is_cuda else torch.float32
-    mt = torch.from_numpy(m).to(device=a.device, dtype=wide)
+    mt = _const(m, a.device, wide)
     flat = a.reshape(a.shape[:-2] + (64,)).to(wide)
     return torch.matmul(flat, mt.T).to(torch.float32).reshape(a.shape)
 
@@ -49,7 +65,7 @@ def fdct(err: torch.Tensor, table: np.ndarray = COS_ENC,
     """
     e = err.to(dtype)
     if dtype == torch.float64:
-        ct = torch.as_tensor(np.asarray(table, np.float64), device=e.device)
+        ct = _const(table, e.device)
         # t1[..., v, u] = sum_x e[..., v, x] * ct[u, x]
         t1 = _mm_exact(e, lambda a, x: a[..., :, x, None], lambda x: ct[:, x])
         # out[..., v, u] = sum_y t1[..., y, u] * ct[v, y]
@@ -68,9 +84,8 @@ def idct(iq: torch.Tensor, table: np.ndarray,
     the cosine and accumulated (IDCT_block enc src:2857-2878)."""
     q = iq.to(dtype)
     if dtype == torch.float64:
-        ct = torch.as_tensor(np.asarray(table, np.float64), device=q.device)
-        cu = torch.ones(8, dtype=torch.float64, device=q.device)
-        cu[0] = IRT2
+        ct = _const(table, q.device)
+        cu = _const(np.array([IRT2] + [1.0] * 7), q.device)
         m = q * cu[None, :]
         t1 = _mm_exact(m, lambda a, u: a[..., :, u, None], lambda u: ct[u, :])
         n = t1 * cu[:, None]

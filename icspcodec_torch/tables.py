@@ -7,9 +7,14 @@ parameters).
   the DC-predictor kind grids (JAX: engine/wavefront.py).
 * ``fdct_matrix`` / ``idct_matrix``: the 64x64 transform matrices of the
   fast float32 path (JAX: ops/transforms.py).
-* ``pack_header``: the 14-byte stream header (JAX: oracle.py).
+* ``pack_header`` / ``parse_header``: the 14-byte stream header (JAX:
+  oracle.py).
+* the motion-compensation offset tables ``NEG_SPIRAL``, ``NEG_UNION``,
+  ``N_CANON``, ``CHROMA_OFFSETS``, ``SPIRAL_TO_CHROMA``,
+  ``CHROMA_U_OFFSETS`` and ``UNION_TO_CHROMA_U`` (JAX: ops/pallas_me.py).
 
-tests/test_torch_tables.py holds every table equal to its JAX original.
+tests/test_torch_tables.py, test_torch_mc.py and test_torch_parse.py hold
+every table equal to its JAX original.
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import functools
 
 import numpy as np
 
-from .constants import COS_DEC, COS_ENC, IRT2
+from .constants import COS_DEC, COS_ENC, IRT2, SPIRAL, SPIRAL_STATE_IDX, SPIRAL_UNION
 
 
 @functools.lru_cache(maxsize=None)
@@ -154,3 +159,61 @@ def pack_header(height: int, width: int, qdc: int, qac: int, period: int) -> byt
     outro <<= 7  # intraPred flag 0 + 6 zero bits
     out += int(outro).to_bytes(2, "little")
     return bytes(out)
+
+
+def parse_header(data: bytes):
+    """Parse the 14-byte header (readHeader, dec src:14-37) into (height,
+    width, qp_dc, qp_ac, period).  Raises ValueError on a short or
+    wrong-magic header and on impossible dimensions or QPs."""
+    if len(data) < 14:
+        raise ValueError(f"bitstream header needs 14 bytes, got {len(data)}")
+    if data[:5] != bytes([0, 73, 67, 83, 80]):
+        raise ValueError("bad bitstream magic (expected \\0ICSP)")
+    height = int.from_bytes(data[5:7], "little")
+    width = int.from_bytes(data[7:9], "little")
+    qdc, qac = data[9], data[10]
+    outro = int.from_bytes(data[12:14], "little")
+    period = (outro & 0x1F80) >> 7
+    if height <= 0 or width <= 0 or height % 16 or width % 16:
+        raise ValueError(f"corrupt header: dimensions {width}x{height}")
+    if qdc < 1 or qac < 1:
+        raise ValueError(f"corrupt header: QP {qdc}/{qac}")
+    return height, width, qdc, qac, period
+
+
+# ---------------------------------------------------------------------------
+# motion-compensation offset tables.  An MV in the stream is minus one of the
+# spiral offsets: one of the 64 canonical ones, or of the 129 of the union
+# when the encoder's zero-SAD break mirrored the walk.  Chroma MC uses mv/2
+# with C truncation (enc src:2538), so a chroma window offset is
+# sign(o) * (|o| // 2).
+# ---------------------------------------------------------------------------
+
+
+def _chroma_table():
+    """Unique chroma window offsets and the spiral-index -> chroma-index map."""
+    c = np.sign(SPIRAL) * (np.abs(SPIRAL) // 2)
+    uniq, inv = np.unique(c, axis=0, return_inverse=True)
+    return uniq.astype(np.int32), inv.astype(np.int32)
+
+
+def _chroma_union_table():
+    """Unique chroma window offsets of the 129 union rows, in order of first
+    appearance, so that the canonical chroma offsets form a prefix."""
+    c = np.sign(SPIRAL_UNION) * (np.abs(SPIRAL_UNION) // 2)
+    seen: dict = {}
+    uniq = []
+    inv = np.zeros(len(c), np.int32)
+    for i, o in enumerate(map(tuple, c)):
+        if o not in seen:
+            seen[o] = len(uniq)
+            uniq.append(o)
+        inv[i] = seen[o]
+    return np.asarray(uniq, np.int32), inv
+
+
+CHROMA_OFFSETS, SPIRAL_TO_CHROMA = _chroma_table()
+NEG_SPIRAL = (-SPIRAL).astype(np.int32)
+N_CANON = int(SPIRAL_STATE_IDX[0].max()) + 1  # canonical-unique union prefix
+CHROMA_U_OFFSETS, UNION_TO_CHROMA_U = _chroma_union_table()
+NEG_UNION = (-SPIRAL_UNION).astype(np.int32)

@@ -118,7 +118,7 @@ def test_frame_items_and_pack_match_jax():
     syms = _symbols(rng, 3, 4, 6)
     items = jax.jit(jbd.frame_items_dev, static_argnums=1)
     cj, lj = items({k: jnp.asarray(v) for k, v in syms.items()}, True)
-    ct, lt = tbd.frame_items_dev({k: _t(v) for k, v in syms.items()})
+    ct, lt = tbd.frame_items_dev({k: _t(v) for k, v in syms.items()}, True)
     assert np.array_equal(_j(cj).astype(np.int64), ct.numpy())
     assert np.array_equal(_j(lj), lt.numpy())
     maxbytes = int(-(-int(_j(lj).sum(1).max()) // 8)) + 5
