@@ -5,10 +5,11 @@
 
 Builds the CUDA kernels from csrc/ and the bitstream parser from runtime/,
 holds each kernel against its plain PyTorch version on the card, drives the
-port's paths through its entry points at CIF300 (the all-intra encode with
-codec.encode, the all-intra and the period-10 decode with codec.decode),
-and checks exact-mode streams and decoded planes against sha256 digests
-that tests/test_torch_codec.py and tests/test_torch_decode.py pin to the
+port's paths through its entry points at CIF300 (the all-intra and the
+period-10 encode with codec.encode, the all-intra and the period-10 decode
+with codec.decode), and checks exact-mode streams and decoded planes
+against sha256 digests that tests/test_torch_codec.py,
+tests/test_torch_inter_encode.py and tests/test_torch_decode.py pin to the
 JAX package's output.  Phases, each of which fails the run:
 
   1. build    nvcc builds every kernel and cc the parser, all at once
@@ -22,8 +23,9 @@ JAX package's output.  Phases, each of which fails the run:
               a caller may have it: the fast transforms on the card must
               still agree with the CPU's within 2e-5 of their largest
               value (float32 reordering; TF32 would err by ~5e-4)
-  4. encode   codec.encode of CIF300, fast mode, through kernels A and B
-              (launch counters), timed with CUDA events after a warm-up
+  4. encode   codec.encode of CIF300, all-intra, fast mode, through kernels
+              A and B (launch counters), timed with CUDA events after a
+              warm-up
   5. kernel E motion compensation vs plain at CIF luma and chroma, MVs from
               the 129 union offsets and some leaving the padded frame:
               bit-identical
@@ -34,15 +36,33 @@ JAX package's output.  Phases, each of which fails the run:
   7. decode   codec.decode of the phase-4 stream (all-intra CIF300, fast)
               through kernels C and B': PSNR-Y within 0.05 dB of the
               encoder's recon; timed, stage by stage
-  8. decode   codec.decode of a seeded period-10 CIF300 stream (intra
-              frames from the port's encode of benchA, MVs from the union
-              offsets, sparse residuals) through C, B' and E; its intra
-              frames equal phase 7's; timed, stage by stage
-  9. xcheck   exact mode: the encoded stream's sha256 and the decoded
-              planes' digests of two small streams equal the pinned JAX
-              ones; a CIF encode of 4 frames and a CIF decode of one GOP
-              (10 frames) give the same bytes and planes on the card and
-              the CPU
+  8. kernels D and G (motion search) vs plain: 30 benchA frames against
+              the port's intra recon of the frames before them, 30
+              synthStatic frames likewise, and 720p frames with static
+              regions; bit-identical
+  9. kernel F (forward residual chain) vs plain: float64 luma and chroma at
+              CIF, QP 16/16 and 1/1, and at 720p, bit-identical; float32 at
+              the CIF300 P-step shapes, at most 0.1% of symbols differing
+              and |dPSNR-Y| <= 0.05 dB in every frame
+ 10. encode   codec.encode of CIF300 at intra period 10, fast mode, through
+              kernels A, B, D, E and F (launch counters); timed, stage by
+              stage
+ 11. encode   codec.encode of 30 synthStatic CIF frames at period 10: the
+              zero-SAD break fires, so kernel G runs (launch counter); its
+              decode's PSNR-Y within 0.05 dB of its recon
+ 12. decode   codec.decode at period 10 of phase 10's stream through C, B'
+              and E: PSNR-Y within 0.05 dB of the encoder's recon (which
+              bounds the drift of the encoder's reference frames from the
+              decoder's); timed, stage by stage; and of a seeded CIF300 stream
+              (intra frames from the port's encode of benchA, MVs from the
+              union offsets, sparse residuals) whose intra frames equal
+              phase 7's
+ 13. xcheck   exact mode: the encoded streams' sha256 (all-intra and period
+              3 on static-trigger content) and the decoded planes' digests
+              of two small streams equal the pinned JAX ones; a CIF encode
+              of 4 frames, an exact CIF synthStatic GOP (10 frames) and a
+              CIF decode of one GOP (10 frames) give the same bytes and
+              planes on the card and the CPU
 
 Prints a JSON `kernels` line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}.  Exits non-zero, printing no
@@ -61,6 +81,10 @@ import numpy as np
 W, H, NF = 352, 288, 300
 PEAK_BYTES_S = 3.35e12        # H100 SXM HBM3
 PEAK_F32_FLOP_S = 67e12       # H100 SXM float32, outside the tensor cores
+# 32-bit lane operations per second outside the tensor cores: the float32
+# rate with a multiply-add counted once.  A byte absolute difference
+# accumulated into a sum (the SAD kernels' work) counts as one operation.
+PEAK_LANE_OP_S = PEAK_F32_FLOP_S / 2
 XCHECK_CFG = dict(width=96, height=64, qp_dc=8, qp_ac=16, precision="exact")
 XCHECK_SHA256 = "08ece079fe3b9aa18c9654c2066c7f422a57f3fdec12f4f1559c49e8e50b3413"
 # sha256 of the exact-mode decoded planes (planes_digest) of the XCHECK
@@ -68,6 +92,12 @@ XCHECK_SHA256 = "08ece079fe3b9aa18c9654c2066c7f422a57f3fdec12f4f1559c49e8e50b341
 # to the JAX package's decode
 XCHECK_DECODE_SHA256 = "7b1d8295e362cc9c21563b908661197647add23507d8d349a8ea199ae0447dac"
 INTER_XCHECK = dict(height=64, width=96, qdc=8, qac=16, period=3, nframes=5)
+# the exact-mode period-3 encode of static_trigger_input(): its zero-SAD
+# breaks run the stateful branch; tests/test_torch_inter_encode.py pins the
+# sha256 to the JAX package's stream
+INTER_ENC_CFG = dict(width=96, height=64, qp_dc=16, qp_ac=16, intra_period=3,
+                     precision="exact")
+INTER_ENC_SHA256 = "e77c6efa531f06087c6090dbce40eeec492f732c8443197100cb8fbbf2089101"
 INTER_XCHECK_DECODE_SHA256 = (
     "5f34a468854c263b2230e3423e2bc51c21929f6825f25e6d5ec162ebe76930fb")
 
@@ -79,6 +109,25 @@ def xcheck_input():
     cb = rng.integers(0, 256, (2, 32, 48), dtype=np.uint8)
     cr = rng.integers(0, 256, (2, 32, 48), dtype=np.uint8)
     return y, cb, cr
+
+
+def static_trigger_input(f: int = 5, h: int = 64, w: int = 96):
+    """Static-trigger content (tools/make_content.py's synthStatic idea at a
+    small size): saturated black and white blocks repeated across frames
+    beside a moving texture.  The black MB's zero SAD fires the encoder's
+    early break, which mirrors the spiral for the MBs after it."""
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:h, 0:w]
+    tex = 110 + 50 * np.sin(xx / 7.0) + 35 * np.cos(yy / 5.0) + rng.normal(0, 6, (h, w))
+    ys = []
+    for t in range(f):
+        fr = np.roll(tex, (t, 3 * t), axis=(0, 1))
+        fr[0:16, 0:32] = 0
+        fr[48:64, 64:96] = 255
+        ys.append(fr)
+    y = np.clip(np.stack(ys), 0, 255).astype(np.uint8)
+    c = np.full((f, h // 2, w // 2), 128, np.uint8)
+    return y, c, c.copy()
 
 
 def planes_digest(planes: dict) -> str:
@@ -155,11 +204,12 @@ def inter_xcheck_stream() -> bytes:
                             c["qac"], period)
 
 
-def cif_content(nframes: int):
-    """The bench's benchA CIF sequence as (y, cb, cr) uint8 arrays."""
+def cif_content(nframes: int, name: str = "benchA"):
+    """A CIF sequence of tools/make_content.py (the bench's benchA by
+    default) as (y, cb, cr) uint8 arrays."""
     from tools.make_content import synth_sequence
 
-    raw = synth_sequence("benchA", nframes).reshape(nframes, -1).copy()
+    raw = synth_sequence(name, nframes).reshape(nframes, -1).copy()
     y = raw[:, : W * H].reshape(nframes, H, W)
     cb = raw[:, W * H: W * H * 5 // 4].reshape(nframes, H // 2, W // 2)
     cr = raw[:, W * H * 5 // 4:].reshape(nframes, H // 2, W // 2)
@@ -238,17 +288,21 @@ def main() -> int:
     from icspcodec_torch.codec import _DEC_INTER_KEYS, _DEC_INTRA_KEYS, _INTRA_KEYS
     from icspcodec_torch.config import CodecConfig
     from icspcodec_torch.constants import COS_DEC
-    from icspcodec_torch.engine.inter import decode_gop_mvs, decode_inter_frame
+    from icspcodec_torch.bitstream_device import assemble_frames
+    from icspcodec_torch.engine.inter import (decode_gop_mvs, decode_inter_frame,
+                                              encode_inter_frame)
     from icspcodec_torch.engine.intra import (decode_chroma_idct, decode_intra_frames,
                                               encode_chroma_batch, encode_intra_frames,
                                               from_blocks, to_blocks)
-    from icspcodec_torch.ops import _build, dc_fused, intra_decode_fused, intra_fused, mc_fused
-    from icspcodec_torch.ops.me import window_start
+    from icspcodec_torch.ops import (_build, dc_fused, intra_decode_fused, intra_fused, mc_fused,
+                                     me_fused, xform_fused)
+    from icspcodec_torch.ops.me import mv_diff_field, window_start
     from icspcodec_torch.ops.pad import pad_image
     from icspcodec_torch.ops.quant import c_trunc
     from icspcodec_torch.ops.transforms import fdct, idct
     from icspcodec_torch.runtime import parse_body
-    from icspcodec_torch.tables import NEG_SPIRAL, NEG_UNION
+    from icspcodec_torch.tables import (CHROMA_OFFSETS, NEG_SPIRAL, NEG_UNION, SPIRAL_TO_CHROMA,
+                                        pack_header)
 
     dev = torch.device("cuda")
     f32 = torch.float32
@@ -263,15 +317,18 @@ def main() -> int:
     def reset_counts():
         intra_fused.launches = dc_fused.launches = dc_fused.launches_inv = 0
         intra_decode_fused.launches = mc_fused.launches = 0
+        me_fused.launches = me_fused.launches_extra = xform_fused.launches = 0
 
     def counts():
         return {"A": intra_fused.launches, "B": dc_fused.launches,
                 "B'": dc_fused.launches_inv, "C": intra_decode_fused.launches,
-                "E": mc_fused.launches}
+                "E": mc_fused.launches, "D": me_fused.launches,
+                "F": xform_fused.launches, "G": me_fused.launches_extra}
 
     # ---- 1. build ---------------------------------------------------------
     t0 = time.time()
-    logs = _build.build(["intra_luma", "dc_dpcm", "intra_decode", "mc_gather", "vlcparse"])
+    logs = _build.build(["intra_luma", "dc_dpcm", "intra_decode", "mc_gather", "sad_mc",
+                         "xform_fwd", "vlcparse"])
     for name, log in logs.items():
         print(f"[build {name}]\n{log.strip()}")
     print(f"build: {time.time() - t0:.1f} s", flush=True)
@@ -279,7 +336,7 @@ def main() -> int:
     y, cb, cr = cif_content(NF)
     yt = torch.from_numpy(y).to(dev)
     ct = torch.from_numpy(np.concatenate([cb, cr])).to(dev)
-    err = {k: 0 for k in ("A", "B", "B'", "C", "E")}  # largest |kernel - plain|
+    err = {k: 0 for k in ("A", "B", "B'", "C", "E", "D", "F", "G")}  # largest |kernel - plain|
 
     # ---- 2. kernels B and B' vs plain -------------------------------------
     for dtype in (torch.float32, torch.float64):
@@ -524,44 +581,222 @@ def main() -> int:
     bi_bound = bi_bytes / PEAK_BYTES_S * 1e3
     del up, up_args, out, ys, mpm, mbit
 
-    # ---- 8. end to end: the period-10 decode ------------------------------
+    # ---- 8. kernels D and G vs plain --------------------------------------
     period = 10
-    isyms = encode_intra_frames(yt[::period], torch.from_numpy(cb[::period]).to(dev),
-                                torch.from_numpy(cr[::period]).to(dev), 16, 16, dtype=f32,
-                                return_recon=False)
-    isyms = {n: isyms[n] for n in _INTRA_KEYS}
-    psyms, mv = seeded_symbols(np.random.default_rng(2024), NF - NF // period, H, W,
-                               intra=False)
-    canon = {tuple(v) for v in NEG_SPIRAL.tolist()}
-    nc = sum(1 for v in mv.reshape(-1, 2).tolist() if tuple(v) not in canon)
-    check(nc > 0, "the period-10 stream carries no non-canonical MV")
-    p10 = write_gop_stream(isyms, {n: torch.from_numpy(v).to(dev) for n, v in psyms.items()},
-                           torch.from_numpy(mv).to(dev), NF, H, W, 16, 16, period)
+    ng = NF // period                     # 30 GOPs: the batch of one P-step
+    # benchA frames 1..30 against the port's intra recon of frames 0..29, the
+    # same synthStatic frames, and 720p frames with static regions
+    prev = encode_intra_frames(yt[:ng], cbt[:ng], crt[:ng], 16, 16, dtype=f32)
+    sy, scb, scr = cif_content(ng + 1, "synthStatic")
+    syt, scbt, scrt = (torch.from_numpy(a).to(dev) for a in (sy, scb, scr))
+    sprev = encode_intra_frames(syt[:ng], scbt[:ng], scrt[:ng], 16, 16, dtype=f32)
+    rng = np.random.default_rng(720)
+    y7 = torch.from_numpy(rng.integers(0, 256, (3, 720, 1280), dtype=np.uint8)).to(dev)
+    y7[1:, 96:304, 192:512] = y7[:2, 96:304, 192:512]
+    for name, cur, prv in (("benchA", yt[1:ng + 1], prev["recon_y"]),
+                           ("synthStatic", syt[1:], sprev["recon_y"]), ("720p", y7[1:], y7[:2])):
+        cur, pad = cur.contiguous(), pad_image(prv, 16)
+        kd, pd = me_fused.sad_mc_best(cur, pad), me_fused.sad_mc_best_plain(cur, pad)
+        kg, pg = me_fused.sad_union_extra(cur, pad), me_fused.sad_union_extra_plain(cur, pad)
+        ed, eg = max(max_abs(a, b) for a, b in zip(kd, pd)), max_abs(kg, pg)
+        err["D"], err["G"] = max(err["D"], ed), max(err["G"], eg)
+        check(ed == 0, f"kernel D on {name}: differs from plain by {ed}")
+        check(eg == 0, f"kernel G on {name}: differs from plain by {eg}")
+        print(f"kernels D and G on {name} ({cur.shape[0]} frames of {cur.shape[2]}x{cur.shape[1]}, "
+              f"{int((pd[1] >= 2).sum())} MBs with zc >= 2): bit-identical", flush=True)
+    del kd, pd, kg, pg, y7, sprev
+    cur_d, pad_d = yt[1:ng + 1].contiguous(), pad_image(prev["recon_y"], 16)
+    kd_ms = event_ms(lambda: me_fused.sad_mc_best(cur_d, pad_d), 20)
+    pd_ms = event_ms(lambda: me_fused.sad_mc_best_plain(cur_d, pad_d), 3)
+    kg_ms = event_ms(lambda: me_fused.sad_union_extra(cur_d, pad_d), 20)
+    pg_ms = event_ms(lambda: me_fused.sad_union_extra_plain(cur_d, pad_d), 3)
+    nmb = ng * (H // 16) * (W // 16)
+    # each input byte read once, each output written once; one operation per
+    # byte absolute difference accumulated (64 steps or 66 offsets x 256 px)
+    d_bytes = 2 * cur_d.numel() + pad_d.numel() + nmb * (63 + 2) * 4 + 64 * 3 * 4
+    d_ops = nmb * 64 * 256
+    d_bound = max(d_bytes / PEAK_BYTES_S, d_ops / PEAK_LANE_OP_S) * 1e3
+    g_bytes = cur_d.numel() + pad_d.numel() + nmb * 66 * 4 + 66 * 2 * 4
+    g_ops = nmb * 66 * 256
+    g_bound = max(g_bytes / PEAK_BYTES_S, g_ops / PEAK_LANE_OP_S) * 1e3
+
+    # ---- 9. kernel F vs plain ---------------------------------------------
+    # one P-step's residuals: luma against kernel D's predictor, Cb and Cr
+    # against the chroma predictor at D's MVs (the fixed branch)
+    best_d, _, _, pred_d = me_fused.sad_mc_best(cur_d, pad_d)
+    res_l = to_blocks(cur_d.to(torch.int32) - pred_d.to(torch.int32))
+    padc_d = pad_image(torch.cat([prev["recon_cb"], prev["recon_cr"]]), 8)
+    cidx_d = torch.from_numpy(SPIRAL_TO_CHROMA).to(dev)[best_d.long()]
+    predc_d = mc_fused.mc_select(padc_d, torch.cat([cidx_d, cidx_d]), CHROMA_OFFSETS, 8)
+    curc_d = torch.cat([cbt[1:ng + 1], crt[1:ng + 1]])
+    res_c = to_blocks(curc_d.to(torch.int32) - predc_d.to(torch.int32))
+    rng = np.random.default_rng(7200)
+    f_cases = [("CIF luma", res_l[:8], False), ("CIF chroma", res_c[:16], True)]
+    for name, (h7, w7), chroma in (("720p luma", (720, 1280), False),
+                                   ("720p chroma", (368, 640), True)):
+        r7 = np.clip(rng.normal(0, 30, (2, h7, w7)), -255, 255).astype(np.int32)
+        f_cases.append((name, to_blocks(torch.from_numpy(r7).to(dev)), chroma))
+    keys_f = ("scan", "acflag", "r")
+    for name, blk, chroma in f_cases:
+        for qdc, qac in ((16, 16), (1, 1)):
+            k = xform_fused.xform_fwd_fused(blk, qdc, qac, chroma, dtype=torch.float64)
+            p = xform_fused.xform_fwd_plain(blk, qdc, qac, chroma, dtype=torch.float64)
+            check(all(torch.equal(k[n], p[n]) for n in keys_f),
+                  f"kernel F float64 {name} QP {qdc}/{qac}: differs from plain")
+        print(f"kernel F float64 {name} ({blk.shape[0]} planes), QP 16/16 and 1/1: bit-identical",
+              flush=True)
+    kf = [xform_fused.xform_fwd_fused(res_l, 16, 16, False, dtype=f32),
+          xform_fused.xform_fwd_fused(res_c, 16, 16, True, dtype=f32)]
+    pf = [xform_fused.xform_fwd_plain(res_l, 16, 16, False, dtype=f32),
+          xform_fused.xform_fwd_plain(res_c, 16, 16, True, dtype=f32)]
+    err["F"] = max(float((a[n].double() - b[n].double()).abs().max())
+                   for a, b in zip(kf, pf) for n in ("scan", "r"))
+    fdiff = sum(int((a["scan"] != b["scan"]).sum()) for a, b in zip(kf, pf))
+    fsyms = sum(a["scan"].numel() for a in kf)
+
+    def luma_recon(xf):
+        return torch.clamp(pred_d.to(torch.int32) + from_blocks(xf["r"]), 0, 255).cpu().numpy()
+
+    dpf = psnr_frames(luma_recon(kf[0]), cur_d.cpu().numpy()) - psnr_frames(
+        luma_recon(pf[0]), cur_d.cpu().numpy())
+    f_check = dict(symbols_differing=fdiff, symbols=fsyms, max_abs_err=err["F"],
+                   dpsnr_y_db_worst_frame=float(np.abs(dpf).max()))
+    print("kernel F float32 CIF300 P-step (luma and chroma) vs plain: " + json.dumps(f_check),
+          flush=True)
+    check(fdiff <= 0.001 * fsyms, f"kernel F float32: {fdiff} of {fsyms} symbols differ (> 0.1%)")
+    check(f_check["dpsnr_y_db_worst_frame"] <= 0.05,
+          f"kernel F float32: a frame's |dPSNR-Y| {f_check['dpsnr_y_db_worst_frame']} > 0.05 dB")
+    del kf, pf, f_cases
+
+    def f_kernel():
+        return (xform_fused.xform_fwd_fused(res_l, 16, 16, False, dtype=f32),
+                xform_fused.xform_fwd_fused(res_c, 16, 16, True, dtype=f32))
+
+    kf_ms = event_ms(f_kernel, 20)
+    kf64_ms = event_ms(lambda: (xform_fused.xform_fwd_fused(res_l, 16, 16, False),
+                                xform_fused.xform_fwd_fused(res_c, 16, 16, True)), 10)
+    pf_ms = event_ms(lambda: (xform_fused.xform_fwd_plain(res_l, 16, 16, False, dtype=f32),
+                              xform_fused.xform_fwd_plain(res_c, 16, 16, True, dtype=f32)), 3)
+    nb_l, nb_c = res_l[..., 0, 0].numel(), res_c[..., 0, 0].numel()
+    # int32 blocks in; int16 symbols, int8 flags and r (int32 luma, float32
+    # chroma) out; the separable transforms: 4,096 flops a block
+    f_bytes = (nb_l + nb_c) * (64 * 4 + 64 * 2 + 1 + 64 * 4) + 2 * (65 * 4 + 64 * 4)
+    f_flops = (nb_l + nb_c) * 4096
+    f_bound = max(f_bytes / PEAK_BYTES_S, f_flops / PEAK_F32_FLOP_S) * 1e3
+
+    # ---- 10. end to end: the period-10 encode -----------------------------
+    cfg10 = CodecConfig(width=W, height=H, qp_dc=16, qp_ac=16, intra_period=period,
+                        precision="fast")
     reset_counts()
-    dec10 = codec.decode(p10, NF, precision="fast")
+    bits10, rec10 = codec.encode(y, cb, cr, cfg10)
+    torch.cuda.synchronize()
+    launches_enc10 = counts()
+    check(all(launches_enc10[n] >= 1 for n in ("A", "B", "D", "E", "F")),
+          f"the period-10 encode did not launch kernels A, B, D, E and F: {launches_enc10}")
+    check(rec10["y"].shape == y.shape and len(bits10) > 14,
+          "period-10 encode output has the wrong shape")
+    psnr10 = psnr(rec10["y"], y)
+    check(np.isfinite(psnr10) and psnr10 > 30, f"period-10 encode PSNR-Y {psnr10} dB is implausible")
+    enc10_ms = event_ms(lambda: codec.encode(y, cb, cr, cfg10), reps=3, warmup=0)
+    e2e10 = dict(frames=NF, bytes=len(bits10), psnr_y_db=psnr10, encode_ms=enc10_ms,
+                 encode_fps=NF / (enc10_ms / 1e3), launches=launches_enc10)
+    print("encode period-10 CIF300 fast: " + json.dumps(e2e10), flush=True)
+    print("device time by kernel in one period-10 encode: " + json.dumps(profile_run(
+        lambda: codec.encode(y, cb, cr, cfg10), enc10_ms)), flush=True)
+
+    # stage by stage: the engine, one P-step's parts (x 9 P-steps), the
+    # entropy stages and the host splice
+    from icspcodec_torch.engine.inter import encode_gop
+    g3 = [a.reshape((ng, period) + a.shape[1:]) for a in (yt, cbt, crt)]
+    st10 = {}
+    st10["upload_ms"] = st["upload_ms"]
+    st10["engine_ms"] = event_ms(lambda: encode_gop(*g3, 16, 16, dtype=f32), 3)
+    st10["intra_batch_ms"] = event_ms(lambda: encode_intra_frames(
+        g3[0][:, 0], g3[1][:, 0], g3[2][:, 0], 16, 16, dtype=f32), 3)
+    it = encode_intra_frames(g3[0][:, 0], g3[1][:, 0], g3[2][:, 0], 16, 16, dtype=f32)
+    cur1 = g3[0][:, 1]
+    step = dict(p_step_ms=event_ms(lambda: encode_inter_frame(
+        cur1, g3[1][:, 1], g3[2][:, 1], it["recon_y"], it["recon_cb"], it["recon_cr"], 16, 16,
+        dtype=f32), 5))
+    pad1 = pad_image(it["recon_y"], 16)
+    step["D_ms"] = event_ms(lambda: me_fused.sad_mc_best(cur1, pad1), 20)
+    best1, zc1, _, pred1 = me_fused.sad_mc_best(cur1, pad1)
+    step["branch_sync_ms"] = event_ms(lambda: bool((zc1 >= 2).any()), 20)
+    padc1 = pad_image(torch.cat([it["recon_cb"], it["recon_cr"]]), 8)
+    cidx1 = torch.from_numpy(SPIRAL_TO_CHROMA).to(dev)[best1.long()]
+    step["E_chroma_ms"] = event_ms(lambda: mc_fused.mc_select(
+        padc1, torch.cat([cidx1, cidx1]), CHROMA_OFFSETS, 8), 20)
+    predc1 = mc_fused.mc_select(padc1, torch.cat([cidx1, cidx1]), CHROMA_OFFSETS, 8)
+    res1 = to_blocks(cur1.to(torch.int32) - pred1.to(torch.int32))
+    resc1 = to_blocks(torch.cat([g3[1][:, 1], g3[2][:, 1]]).to(torch.int32)
+                      - predc1.to(torch.int32))
+    step["F_luma_ms"] = event_ms(lambda: xform_fused.xform_fwd_fused(
+        res1, 16, 16, False, dtype=f32), 20)
+    step["F_chroma_ms"] = event_ms(lambda: xform_fused.xform_fwd_fused(
+        resc1, 16, 16, True, dtype=f32), 20)
+    step["glue_ms"] = step["p_step_ms"] - sum(v for n, v in step.items() if n != "p_step_ms")
+    st10["one_p_step_ms"] = step
+    (isy, iix), (psy, pix), rect = codec.encode_symbols(yt, cbt, crt, cfg10)
+    st10["items_ms"] = event_ms(lambda: (frame_items_dev(isy, True),
+                                         frame_items_dev(psy, False)), 3)
+    ci, li = frame_items_dev(isy, True)
+    cp, lp = frame_items_dev(psy, False)
+    st10["pack_and_pull_ms"] = event_ms(lambda: (_pack_bucketed(ci, li),
+                                                 _pack_bucketed(cp, lp)), 3)
+    rows10, nbits10 = [None] * NF, [None] * NF
+    for idx, (r, b) in ((iix, _pack_bucketed(ci, li)), (pix, _pack_bucketed(cp, lp))):
+        for n, row, nb in zip(idx, r, b):
+            rows10[int(n)], nbits10[int(n)] = row, nb
+    st10["host_splice_ms"] = event_ms(lambda: pack_header(H, W, 16, 16, period) + assemble_frames(
+        rows10, nbits10), 3)
+    check(pack_header(H, W, 16, 16, period) + assemble_frames(rows10, nbits10) == bits10,
+          "the staged period-10 encode's bytes differ from codec.encode's")
+    st10["recon_pull_ms"] = event_ms(lambda: [rect[n].cpu() for n in ("y", "cb", "cr")], 3)
+    print("period-10 encode stages (ms; one P-step's parts, 9 P-steps per encode): "
+          + json.dumps(st10), flush=True)
+    del g3, it, isy, psy, rect, ci, li, cp, lp, rows10, res1, resc1
+
+    # ---- 11. end to end: a synthStatic encode (kernel G) ------------------
+    sy, scb, scr = sy[:ng], scb[:ng], scr[:ng]
+    reset_counts()
+    bits_s, rec_s = codec.encode(sy, scb, scr, cfg10)
+    torch.cuda.synchronize()
+    launches_static = counts()
+    check(all(launches_static[n] >= 1 for n in ("A", "B", "D", "E", "F", "G")),
+          f"the synthStatic encode did not launch kernels A, B, D, E, F and G: {launches_static}")
+    psnr_s = psnr(rec_s["y"], sy)
+    dec_s = codec.decode(bits_s, ng, precision="fast")
+    psnr_sd = psnr(dec_s["y"], sy)
+    check(abs(psnr_sd - psnr_s) <= 0.05,
+          f"synthStatic decode PSNR-Y {psnr_sd} dB is not within 0.05 dB of the recon's {psnr_s}")
+    static_ms = event_ms(lambda: codec.encode(sy, scb, scr, cfg10), reps=3, warmup=0)
+    print("encode period-10 synthStatic CIF, 30 frames, fast: " + json.dumps(dict(
+        frames=ng, bytes=len(bits_s), psnr_y_db=psnr_s, decoded_psnr_y_db=psnr_sd,
+        encode_ms=static_ms, encode_fps=ng / (static_ms / 1e3), launches=launches_static)),
+        flush=True)
+
+    # ---- 12. end to end: the period-10 decode -----------------------------
+    reset_counts()
+    dec10 = codec.decode(bits10, NF, precision="fast")
     torch.cuda.synchronize()
     launches_p10 = counts()
     check(all(launches_p10[n] >= 1 for n in ("C", "B'", "E")),
           f"the period-10 decode did not launch kernels C, B' and E: {launches_p10}")
     check(all(dec10[n].shape == dec[n].shape for n in dec),
           "period-10 decode output has the wrong shape")
-    # the luma symbols of an intra frame do not depend on its batch (kernel A
-    # works frame by frame), so neither do its decoded planes
-    check(np.array_equal(dec10["y"][::period], dec["y"][::period]),
-          "the period-10 decode's intra luma differs from the all-intra decode's")
-    p10_ms = event_ms(lambda: codec.decode(p10, NF, precision="fast"), reps=3, warmup=0)
-    d_p10 = dict(frames=NF, bytes=len(p10), mvs=mv.size // 2, noncanonical_mvs=nc,
-                 decode_ms=p10_ms, decode_fps=NF / (p10_ms / 1e3), launches=launches_p10,
-                 psnr_y_intra_frames_db=psnr(dec10["y"][::period], y[::period]),
-                 intra_chroma_pixels_differing=int(sum(
-                     (dec10[n][::period] != dec[n][::period]).sum() for n in ("cb", "cr"))))
-    print("decode period-10 CIF300 fast: " + json.dumps(d_p10), flush=True)
+    psnr_d10 = psnr(dec10["y"], y)
+    check(abs(psnr_d10 - psnr10) <= 0.05,
+          f"period-10 decode PSNR-Y {psnr_d10} dB is not within 0.05 dB of the recon's {psnr10}")
+    p10_ms = event_ms(lambda: codec.decode(bits10, NF, precision="fast"), reps=3, warmup=0)
+    d_p10 = dict(frames=NF, bytes=len(bits10), psnr_y_db=psnr_d10, recon_psnr_y_db=psnr10,
+                 decode_ms=p10_ms, decode_fps=NF / (p10_ms / 1e3), launches=launches_p10)
+    print("decode period-10 CIF300 fast (phase 10's stream): " + json.dumps(d_p10), flush=True)
     print("device time by kernel in one period-10 decode: " + json.dumps(profile_run(
-        lambda: codec.decode(p10, NF, precision="fast"), p10_ms)), flush=True)
-    psyms_np = parse_body(p10[14:], NF, H, W, period)
+        lambda: codec.decode(bits10, NF, precision="fast"), p10_ms)), flush=True)
+    psyms_np = parse_body(bits10[14:], NF, H, W, period)
     keys10 = _DEC_INTRA_KEYS + ("mv_diff",)
     sp = {}
-    sp["parse_ms"] = event_ms(lambda: parse_body(p10[14:], NF, H, W, period), 3)
+    sp["parse_ms"] = event_ms(lambda: parse_body(bits10[14:], NF, H, W, period), 3)
     sp["upload_ms"] = event_ms(lambda: [torch.from_numpy(psyms_np[n]).to(dev)
                                         for n in keys10], 3)
     up = {n: torch.from_numpy(psyms_np[n]).to(dev) for n in keys10}
@@ -587,6 +822,32 @@ def main() -> int:
     sp["pull_ms"] = sd["pull_ms"]
     print("period-10 decode stages (ms; pull as in the all-intra decode): " + json.dumps(sp),
           flush=True)
+
+    # a seeded period-10 stream: intra frames from the all-intra path's
+    # symbols, MVs drawn from the 129 union offsets, sparse residuals
+    isyms = encode_intra_frames(yt[::period], cbt[::period], crt[::period], 16, 16, dtype=f32,
+                                return_recon=False)
+    isyms = {n: isyms[n] for n in _INTRA_KEYS}
+    psyms, mv = seeded_symbols(np.random.default_rng(2024), NF - NF // period, H, W,
+                               intra=False)
+    canon = {tuple(v) for v in NEG_SPIRAL.tolist()}
+    nc = sum(1 for v in mv.reshape(-1, 2).tolist() if tuple(v) not in canon)
+    check(nc > 0, "the seeded period-10 stream carries no non-canonical MV")
+    p10 = write_gop_stream(isyms, {n: torch.from_numpy(v).to(dev) for n, v in psyms.items()},
+                           torch.from_numpy(mv).to(dev), NF, H, W, 16, 16, period)
+    dec10s = codec.decode(p10, NF, precision="fast")
+    # the luma symbols of an intra frame do not depend on its batch (kernel A
+    # works frame by frame), so neither do its decoded planes
+    check(np.array_equal(dec10s["y"][::period], dec["y"][::period]),
+          "the seeded period-10 decode's intra luma differs from the all-intra decode's")
+    check(np.array_equal(dec10["y"][::period], dec["y"][::period]),
+          "the period-10 decode's intra luma differs from the all-intra decode's")
+    p10s_ms = event_ms(lambda: codec.decode(p10, NF, precision="fast"), reps=3, warmup=0)
+    print("decode period-10 CIF300 fast (seeded stream): " + json.dumps(dict(
+        frames=NF, bytes=len(p10), mvs=mv.size // 2, noncanonical_mvs=nc, decode_ms=p10s_ms,
+        decode_fps=NF / (p10s_ms / 1e3),
+        psnr_y_intra_frames_db=psnr(dec10s["y"][::period], y[::period]))), flush=True)
+    del isyms, psyms, dec10s
 
     # kernel E at one P-step's shapes: luma and chroma, two launches
     pad_l = pad_image(first["y"], 16)
@@ -630,11 +891,21 @@ def main() -> int:
     e_bound = e_bytes / PEAK_BYTES_S * 1e3
     del up, sym_i, sym_p, first, mvr, pad_l, pad_c, il, ic
 
-    # ---- 9. cross-implementation checks (exact mode) ----------------------
+    # ---- 13. cross-implementation checks (exact mode) ---------------------
     xb, _ = codec.encode(*xcheck_input(), CodecConfig(**XCHECK_CFG), return_recon=False)
     digest = hashlib.sha256(xb).hexdigest()
     check(digest == XCHECK_SHA256, f"exact-mode stream sha256 {digest} != {XCHECK_SHA256}")
     print(f"xcheck: exact-mode stream of {len(xb)} bytes matches the pinned sha256", flush=True)
+    reset_counts()
+    ib, _ = codec.encode(*static_trigger_input(), CodecConfig(**INTER_ENC_CFG),
+                         return_recon=False)
+    launches_x = counts()
+    digest = hashlib.sha256(ib).hexdigest()
+    check(digest == INTER_ENC_SHA256,
+          f"exact-mode period-3 stream sha256 {digest} != {INTER_ENC_SHA256}")
+    check(launches_x["G"] >= 1, f"the static-trigger encode did not launch kernel G: {launches_x}")
+    print(f"xcheck: exact-mode period-3 static-trigger stream of {len(ib)} bytes matches the "
+          "pinned sha256", flush=True)
     nxi = INTER_XCHECK["nframes"]
     for name, data, n, pinned in (("XCHECK", xb, 2, XCHECK_DECODE_SHA256),
                                   ("inter", inter_xcheck_stream(), nxi,
@@ -651,6 +922,18 @@ def main() -> int:
     check(bg == bc and all(np.array_equal(rg[n], rc[n]) for n in rg),
           "exact-mode CIF stream or recon differs between the card and the CPU")
     print(f"xcheck: exact-mode CIF stream of 4 frames ({len(bg)} bytes) and recon "
+          "identical on the card and the CPU", flush=True)
+    xcfg10 = CodecConfig(width=W, height=H, qp_dc=16, qp_ac=16, intra_period=period,
+                         precision="exact")
+    reset_counts()
+    bg, rg = codec.encode(sy[:period], scb[:period], scr[:period], xcfg10)
+    launches_x = counts()
+    bc, rc = codec.encode(sy[:period], scb[:period], scr[:period], xcfg10, device="cpu")
+    check(bg == bc and all(np.array_equal(rg[n], rc[n]) for n in rg),
+          "exact-mode synthStatic GOP stream or recon differs between the card and the CPU")
+    check(all(launches_x[n] >= 1 for n in ("D", "F", "G")),
+          f"the exact synthStatic GOP did not launch kernels D, F and G: {launches_x}")
+    print(f"xcheck: exact-mode CIF synthStatic GOP ({period} frames, {len(bg)} bytes) and recon "
           "identical on the card and the CPU", flush=True)
     dg = codec.decode(p10, period, precision="exact")
     dcpu = codec.decode(p10, period, precision="exact", device="cpu")
@@ -697,7 +980,33 @@ def main() -> int:
              bound_by="bytes", library_ms=le_ms,
              check="bit-identical at CIF luma and chroma, union and out-of-frame MVs; "
                    "times are one P-step's luma and chroma launches",
-             path="period-10 decode"),
+             path="period-10 decode", launches_period10_encode=launches_enc10["E"]),
+        dict(name="sad_mc_best", route="cuda", source="icspcodec_torch/csrc/sad_mc.cu",
+             replaces="icspcodec_tpu/ops/pallas_me.py:207", launches=launches_enc10["D"],
+             max_abs_err=err["D"], ms=kd_ms, plain_ms=pd_ms, bound_ms=d_bound,
+             bound_by="operations" if d_ops / PEAK_LANE_OP_S > d_bytes / PEAK_BYTES_S
+             else "bytes", library_ms=None,
+             check="bit-identical on benchA, synthStatic (CIF, 30 frames) and 720p; times "
+                   "are one P-step (30 CIF frames)",
+             path="period-10 encode"),
+        dict(name="xform_fwd", route="cuda", source="icspcodec_torch/csrc/xform_fwd.cu",
+             replaces="icspcodec_tpu/ops/pallas_xform.py:63", launches=launches_enc10["F"],
+             max_abs_err=err["F"], ms=kf_ms, plain_ms=pf_ms, bound_ms=f_bound,
+             bound_by="operations" if f_flops / PEAK_F32_FLOP_S > f_bytes / PEAK_BYTES_S
+             else "bytes", library_ms=None,
+             check="float64 bit-identical (CIF luma and chroma at QP 16/16 and 1/1, 720p); "
+                   f"float32 {fdiff} of {fsyms} symbols differ; times are one P-step's "
+                   "luma and chroma launches",
+             ms_float64=kf64_ms, path="period-10 encode"),
+        dict(name="sad_union_extra", route="cuda", source="icspcodec_torch/csrc/sad_mc.cu",
+             replaces="icspcodec_tpu/ops/pallas_me.py:315", launches=launches_static["G"],
+             max_abs_err=err["G"], ms=kg_ms, plain_ms=pg_ms, bound_ms=g_bound,
+             bound_by="operations" if g_ops / PEAK_LANE_OP_S > g_bytes / PEAK_BYTES_S
+             else "bytes", library_ms=None,
+             check="bit-identical on benchA, synthStatic (CIF, 30 frames) and 720p; times "
+                   "are one P-step (30 CIF frames)",
+             path="period-10 encode of synthStatic",
+             launches_period10_encode=launches_enc10["G"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,10 +1,14 @@
 """Top-level encode and decode API of the PyTorch port.
 
-encode() runs the all-intra codec on one device: the intra engine
-(engine/intra.py, with CUDA kernels A and B on the card), device-side
-entropy items and bit packing (bitstream_device.py), and the host splice
-plus the 14-byte header.  Only the packed frames (and, if asked, the recon
-planes) come back to the host.
+encode() runs the codec at any intra period on one device.  All-intra:
+the intra engine (engine/intra.py, with CUDA kernels A and B on the card).
+With P-frames: closed GOPs batched as the JAX package batches them, the
+full GOPs as one (G, P) batch and a shorter last GOP as another, through
+engine/inter.encode_gop (kernels A and B for the GOPs' first frames, then
+per P-frame position kernels D, E, F and, where the reference's walk breaks
+early, G).  Then device-side entropy items and bit packing
+(bitstream_device.py), and the host splice plus the 14-byte header.  Only
+the packed frames (and, if asked, the recon planes) come back to the host.
 
 decode() reads any stream the codec writes, at every intra period: the
 host parser (runtime/) produces fixed-shape symbol arrays, which go to the
@@ -28,13 +32,14 @@ import torch
 from .bitstream_device import assemble_frames, frame_items_dev, pack_frames_dev
 from .config import CodecConfig
 from .constants import COS_DEC, COS_ENC
-from .engine.inter import decode_gop_mvs, decode_inter_frame
+from .engine.inter import decode_gop_mvs, decode_inter_frame, encode_gop
 from .engine.intra import decode_intra_frames, encode_intra_frames
 from .runtime import parse_body
 from .tables import pack_header, parse_header
 
 _INTRA_KEYS = ("y_scan", "y_acflag", "mpm", "mode_bit",
                "cb_scan", "cb_acflag", "cr_scan", "cr_acflag")
+_INTER_KEYS = ("y_scan", "y_acflag", "mv_diff", "cb_scan", "cb_acflag", "cr_scan", "cr_acflag")
 _DEC_INTRA_KEYS = ("y_scan", "mpm", "mode_bit", "cb_scan", "cr_scan")
 _DEC_INTER_KEYS = ("y_scan", "mv_diff", "cb_scan", "cr_scan")
 _SHARDING = ("gop_shards / tile_shards > 1: GOP batching and sharding are not ported "
@@ -54,10 +59,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _check_supported(cfg: CodecConfig) -> None:
-    if cfg.intra_period not in (0, 1):
-        raise NotImplementedError(
-            f"intra_period={cfg.intra_period}: inter GOP encode is not ported yet "
-            "(ROADMAP.md queue 1 items 7-8)")
+    if cfg.intra_period < 0:
+        raise ValueError(f"intra_period must be >= 0, got {cfg.intra_period}")
     if cfg.gop_shards > 1 or cfg.tile_shards > 1:
         raise NotImplementedError(_SHARDING)
     if cfg.entropy == "host":
@@ -101,30 +104,77 @@ def write_stream(intra_syms, intra_idx, inter_syms, inter_idx, nframes: int, hei
     return pack_header(height, width, qdc, qac, period) + assemble_frames(rows, nbits)
 
 
+def encode_symbols(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor, cfg: CodecConfig,
+                   return_recon: bool = True):
+    """The engines' half of encode(): planes (F, ...) uint8 on one device ->
+    (intra, inter, recon).  intra = (symbols, display indexes) of the intra
+    frames; inter likewise for the P-frames, or None; symbols are dicts of
+    (n, ...) tensors on the device, as write_stream takes them.  recon: dict
+    of (F, ...) uint8 planes on the device, or None.
+
+    GOPs are batched as the JAX package batches them: the full GOPs as one
+    (G, P) batch, a shorter last GOP as another; a one-frame last GOP is
+    intra only."""
+    dtype = torch.float64 if cfg.precision == "exact" else torch.float32
+    nf, eff = y.shape[0], cfg.eff_period
+    q = (cfg.qp_dc, cfg.qp_ac)
+    if eff == 1:
+        out = encode_intra_frames(y, cb, cr, *q, table=COS_ENC, dtype=dtype,
+                                  return_recon=return_recon)
+        rec = {k: out[f"recon_{k}"] for k in ("y", "cb", "cr")} if return_recon else None
+        return ({k: out[k] for k in _INTRA_KEYS}, np.arange(nf)), None, rec
+    nfull, rem = divmod(nf, eff)
+    spans = ([(0, nfull, eff)] if nfull else []) + ([(nfull * eff, 1, rem)] if rem else [])
+    isyms, iidx, psyms, pidx = [], [], [], []
+    for start, g, p in spans:
+        idx = np.arange(start, start + g * p).reshape(g, p)
+        if p == 1:
+            intra = encode_intra_frames(y[start:start + 1], cb[start:start + 1],
+                                        cr[start:start + 1], *q, table=COS_ENC, dtype=dtype,
+                                        return_recon=return_recon)
+            inter = None
+        else:
+            batch = [a[start:start + g * p].reshape((g, p) + a.shape[1:]) for a in (y, cb, cr)]
+            intra, inter = encode_gop(*batch, *q, table=COS_ENC, dtype=dtype)
+        isyms.append(intra)
+        iidx.append(idx[:, 0])
+        if inter is not None:
+            psyms.append({k: v.flatten(0, 1) for k, v in inter.items()})
+            pidx.append(idx[:, 1:].ravel())
+    cat = lambda outs, keys: {k: torch.cat([o[k] for o in outs]) for k in keys}  # noqa: E731
+    rec = None
+    if return_recon:
+        rec = {}
+        order = np.argsort(np.concatenate(iidx + pidx))
+        for k in ("y", "cb", "cr"):
+            planes = torch.cat([o[f"recon_{k}"] for o in isyms + psyms])
+            rec[k] = planes[torch.from_numpy(order).to(planes.device)]
+    inter = (cat(psyms, _INTER_KEYS), np.concatenate(pidx)) if psyms else None
+    return (cat(isyms, _INTRA_KEYS), np.concatenate(iidx)), inter, rec
+
+
 def encode(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, cfg: CodecConfig,
            return_recon: bool = True, device=None):
     """y: (F, H, W) uint8; cb/cr: (F, H/2, W/2) uint8.  Returns (bitstream
     bytes, recon dict of (F, ...) uint8 numpy planes, or None with
-    return_recon=False).
+    return_recon=False).  Any intra period; the bytes of exact mode equal the
+    JAX package's.
 
     device: where to run; None means the CUDA card, and raises when there is
     none.  device="cpu" runs the plain versions of the kernels (the tests do).
     """
     _check_supported(cfg)
     dev = resolve_device(device)
-    dtype = torch.float64 if cfg.precision == "exact" else torch.float32
     if y.shape[0] == 0:
         raise ValueError("need at least one frame")
     yt, cbt, crt = (torch.from_numpy(np.ascontiguousarray(a, np.uint8)).to(dev)
                     for a in (y, cb, cr))
-    out = encode_intra_frames(yt, cbt, crt, cfg.qp_dc, cfg.qp_ac, table=COS_ENC,
-                              dtype=dtype, return_recon=return_recon)
-    f = y.shape[0]
-    bits = write_stream({k: out[k] for k in _INTRA_KEYS}, range(f), None, None, f,
-                        cfg.height, cfg.width, cfg.qp_dc, cfg.qp_ac, cfg.intra_period)
-    rec = None
-    if return_recon:
-        rec = {k: out[f"recon_{k}"].cpu().numpy() for k in ("y", "cb", "cr")}
+    (isyms, iidx), inter, rec = encode_symbols(yt, cbt, crt, cfg, return_recon)
+    psyms, pidx = inter if inter is not None else (None, None)
+    bits = write_stream(isyms, iidx, psyms, pidx, y.shape[0], cfg.height, cfg.width,
+                        cfg.qp_dc, cfg.qp_ac, cfg.intra_period)
+    if rec is not None:
+        rec = {k: v.cpu().numpy() for k, v in rec.items()}
     return bits, rec
 
 

@@ -5,7 +5,8 @@ plane assembly) is one batched tensor op over all blocks of all frames;
 the sequential chains go through the kernel wrappers: the luma pixel
 wavefronts (ops/intra_fused.py, kernel A, to encode; ops/intra_decode_fused.py,
 kernel C, to decode) and the chroma DC chains (ops/dc_fused.py, kernels B
-and B').  Each wrapper runs its CUDA kernel on a CUDA tensor and its plain
+and B'); the inter encoder's chroma chain runs whole as kernel F
+(ops/xform_fused.py).  Each wrapper runs its CUDA kernel on a CUDA tensor and its plain
 version on a CPU tensor, in float32 and float64.
 """
 from __future__ import annotations
@@ -19,6 +20,7 @@ from ..ops.intra_fused import intra_luma_scan_fused
 from ..ops.quant import ac_flag, c_trunc, dequant_block, quant_block
 from ..ops.scanorder import izigzag, zigzag
 from ..ops.transforms import fdct, idct
+from ..ops.xform_fused import xform_fwd_fused
 
 
 def to_blocks(plane: torch.Tensor, bs: int = 8) -> torch.Tensor:
@@ -36,11 +38,21 @@ def from_blocks(blocks: torch.Tensor) -> torch.Tensor:
 
 
 def encode_chroma_batch(planes: torch.Tensor, qdc: int, qac: int, table=COS_ENC,
-                        dtype=torch.float64):
-    """Forward chroma chain for (F, H, W) pixel planes.  Returns dict(scan,
-    acflag, idct); idct is the float inverse-DCT output, which callers turn
-    into pixels their own way."""
-    blocks = to_blocks(planes).to(torch.int32)
+                        dtype=torch.float64, xform: bool = False):
+    """Forward chroma chain for (F, H, W) pixel planes (intra) or (F, gh, gw,
+    8, 8) residual blocks (inter).  Returns dict(scan, acflag, idct); idct
+    is the float inverse-DCT output, which callers turn into pixels their
+    own way.
+
+    xform=True runs the whole chain as kernel F (ops/xform_fused.py), as
+    the JAX package does inside its GOP scan; the intra callers keep the
+    batched ops around the DC chain of kernel B, as the JAX package does for
+    its large intra batches.  Both give the same symbols in float64."""
+    blocks = to_blocks(planes) if planes.dim() == 3 else planes
+    if xform:
+        out = xform_fwd_fused(blocks, qdc, qac, chroma=True, table=table, dtype=dtype)
+        return dict(scan=out["scan"], acflag=out["acflag"], idct=out["r"])
+    blocks = blocks.to(torch.int32)
     d = fdct(blocks, table=table, dtype=dtype)
     q_dc, dq_dc = dc_dpcm_fused(d[..., 0, 0], qdc, chroma=True)
     q = quant_block(d, qdc, qac, chroma=True)

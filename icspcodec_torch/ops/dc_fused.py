@@ -16,11 +16,11 @@ import torch
 
 from ..engine.wavefront import dc_dpcm_scan, idc_dpcm_scan
 from ..tables import chroma_dc_kind, luma_dc_kind
+from .me import device_table
 from . import _build
 
 launches = 0      # kernel B launches, for showing that a run went through it
 launches_inv = 0  # kernel B' launches
-_kinds: dict = {}
 
 
 def _lib():
@@ -44,11 +44,7 @@ def _lib_inv():
 
 def kind_grid(gh: int, gw: int, chroma: bool, device) -> torch.Tensor:
     """The chroma or luma DC kind grid on the device, copied there once."""
-    key = (gh, gw, chroma, str(device))
-    if key not in _kinds:
-        grid = (chroma_dc_kind if chroma else luma_dc_kind)(gh, gw)
-        _kinds[key] = torch.from_numpy(grid).to(device)
-    return _kinds[key]
+    return device_table((chroma_dc_kind if chroma else luma_dc_kind)(gh, gw), device)
 
 
 def dc_dpcm_plain(dc: torch.Tensor, qstep: int, chroma: bool):

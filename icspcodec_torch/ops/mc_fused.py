@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..engine.intra import from_blocks
-from .me import gather_pred
+from .me import device_table, gather_pred
 from . import _build
 
 launches = 0  # kernel launches, for showing that a run went through it
@@ -77,5 +77,5 @@ def mc_select(pad: torch.Tensor, idx: torch.Tensor, offsets, block: int) -> torc
     contract of the JAX package's mc_select_* (offsets SPIRAL, CHROMA_OFFSETS,
     SPIRAL_UNION or CHROMA_U_OFFSETS; pad by p = block).  idx: (B, H/block,
     W/block) integer; the MV of a block is -offsets[idx]."""
-    offs = torch.from_numpy(np.asarray(offsets, np.int32)).to(pad.device)
-    return mc_gather(pad, -offs[idx.to(torch.int64)], block)
+    neg = device_table(-np.asarray(offsets, np.int32), pad.device)
+    return mc_gather(pad, neg[idx.to(torch.int64)], block)

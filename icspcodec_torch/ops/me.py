@@ -1,4 +1,23 @@
-"""Motion-compensation helpers of the inter codec, in plain torch.
+"""Motion estimation and compensation of the inter codec, in plain torch.
+
+Counterpart of icspcodec_tpu/ops/me.py.  The reference walks a 64-step
+spiral per macroblock with early exits (motionEstimation, enc src:2073-2155);
+here every candidate SAD of every MB is computed densely (sad_dense) and
+the reference's rule is applied afterwards:
+
+* the first *strict* minimum in walk order wins;
+* except when two or more evaluations have SAD == 0: the walk breaks at
+  the second zero, which wins, and the walk state (flag / xflag / yflag,
+  which persist across MBs, enc src:2094-2109) is left mid-cycle, so every
+  later MB of the frame walks a mirrored spiral.  The four reachable walk
+  states give per-MB selection tables (state_tables); the state entering
+  each MB is a prefix composition of per-MB 4-state maps along the raster
+  (compose_select), written as a log-depth Hillis-Steele scan.
+
+spiral_search is the plain reference of the whole search: the canonical
+selection, and only when some MB breaks early the union offsets and the
+state composition.  The fused search of the encoder (ops/me_fused.py,
+kernels D and G) produces the SADs these selections consume.
 
 gather_pred is the plain version of kernel E (ops/mc_fused.py): each
 (bs x bs) predictor block is read from the padded previous frame at
@@ -9,9 +28,131 @@ encoder's differential MV field (mvPrediction enc src:2353-2425).
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
+from ..constants import N_SPIRAL_STATES, SPIRAL_STATE_IDX, SPIRAL_TRANS, SPIRAL_UNION
+from ..tables import N_CANON, NEG_UNION
 from .medians import median3, median3_mv_y
+
+
+@functools.lru_cache(maxsize=None)
+def _device_table(data: bytes, dtype: str, shape: tuple, device: torch.device) -> torch.Tensor:
+    arr = np.frombuffer(data, dtype).reshape(shape)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def device_table(arr: np.ndarray, device) -> torch.Tensor:
+    """A numpy table on the device, copied there once per device."""
+    arr = np.ascontiguousarray(arr)
+    return _device_table(arr.tobytes(), arr.dtype.str, arr.shape, torch.device(device))
+
+
+def sad_dense(cur_y: torch.Tensor, pad_prev: torch.Tensor, offsets, bs: int = 16) -> torch.Tensor:
+    """Dense SADs at `offsets` ((n, 2) in (x, y) order) for every MB:
+    (..., n, mbh, mbw) int32.  cur_y: (..., H, W) uint8; pad_prev:
+    (..., H+2bs, W+2bs) uint8, the padded previous reconstruction."""
+    h, w = cur_y.shape[-2], cur_y.shape[-1]
+    mbh, mbw = h // bs, w // bs
+    lead = cur_y.shape[:-2]
+    cur = cur_y.to(torch.int32).reshape(lead + (mbh, bs, mbw, bs))
+    pad = pad_prev.to(torch.int32)
+    sads = []
+    for ox, oy in np.asarray(offsets).tolist():
+        win = pad[..., bs + oy:bs + oy + h, bs + ox:bs + ox + w].reshape(lead + (mbh, bs, mbw, bs))
+        sads.append((cur - win).abs().sum(dim=(-3, -1), dtype=torch.int32))
+    return torch.stack(sads, dim=-3)
+
+
+def _select_from_seq(seq: torch.Tensor):
+    """The reference's selection over a (..., 64, mbh, mbw) SAD sequence in
+    walk order.  Returns (best_step, steps_taken) int32: the first strict
+    minimum, overridden by the second zero-SAD evaluation (enc
+    src:2128-2141), and how many steps the walk ran (64 without a break)."""
+    best = torch.argmin(seq, dim=-3)                 # the first minimum
+    zeros = seq == 0
+    is2 = zeros & (torch.cumsum(zeros, dim=-3) == 2)
+    has2 = is2.any(dim=-3)
+    second = torch.argmax(is2.to(torch.uint8), dim=-3)   # the first True
+    best = torch.where(has2, second, best)
+    steps = torch.where(has2, second + 1, 64)
+    return best.to(torch.int32), steps.to(torch.int32)
+
+
+def state_tables(sads_u: torch.Tensor):
+    """Per-entry-state selection tables from the union SADs (..., 129, mbh,
+    mbw): (best_u, steps), each (..., S, mbh, mbw) int32, the winning union
+    offset and the walk length for every state the walk may enter an MB in."""
+    dev = sads_u.device
+    sidx = device_table(SPIRAL_STATE_IDX.astype(np.int64), dev)          # (S, 64)
+    seq = sads_u[..., sidx, :, :]                                       # (..., S, 64, mbh, mbw)
+    best_step, steps = _select_from_seq(seq)                            # (..., S, mbh, mbw)
+    s_ix = torch.arange(N_SPIRAL_STATES, device=dev)[:, None, None]
+    best_u = sidx.reshape(-1)[s_ix * 64 + best_step.to(torch.int64)]
+    return best_u.to(torch.int32), steps
+
+
+def compose_select(best_u: torch.Tensor, steps: torch.Tensor) -> torch.Tensor:
+    """Raster state composition: the per-state tables (..., S, mbh, mbw) ->
+    the chosen union offset index (..., mbh, mbw) int32.
+
+    Each MB maps the walk state entering it to the state leaving it (a map
+    {0..3} -> {0..3}); these maps compose associatively, so the
+    raster-sequential loop of the reference (enc src:2104) becomes an
+    inclusive prefix scan over the mbh*mbw MBs in ceil(log2(mbh*mbw))
+    rounds (Hillis-Steele), each one gather."""
+    lead = best_u.shape[:-3]
+    mbh, mbw = best_u.shape[-2], best_u.shape[-1]
+    n = mbh * mbw
+    dev = best_u.device
+    s_ix = torch.arange(N_SPIRAL_STATES, device=dev)[:, None, None]
+    trans_t = device_table(SPIRAL_TRANS.astype(np.int64), dev)
+    trans = trans_t.reshape(-1)[s_ix * SPIRAL_TRANS.shape[1] + steps.to(torch.int64)]
+
+    def flat(a):  # (..., S, mbh, mbw) -> (..., N, S), raster order
+        return a.reshape(lead + (N_SPIRAL_STATES, n)).movedim(-2, -1)
+
+    g = flat(trans)
+    d = 1
+    while d < n:
+        # g[i] is the composition of the maps of MBs i-d+1 .. i; the new
+        # g[i] applies g[i-d] first, then g[i]: new[i][s] = g[i][g[i-d][s]]
+        head = g[..., :d, :]
+        tail = torch.gather(g[..., d:, :], -1, g[..., :-d, :])
+        g = torch.cat([head, tail], dim=-2)
+        d *= 2
+    # the state entering each MB; MB 0 starts in the canonical state 0
+    entry = torch.cat([torch.zeros(lead + (1,), dtype=g.dtype, device=dev), g[..., :-1, 0]],
+                      dim=-1)
+    best = torch.gather(flat(best_u), -1, entry[..., None])[..., 0]
+    return best.reshape(lead + (mbh, mbw)).to(torch.int32)
+
+
+def stateful_select(sads_u: torch.Tensor) -> torch.Tensor:
+    """The full stateful selection from the union SADs (..., 129, mbh, mbw):
+    the chosen union offset index (..., mbh, mbw) int32."""
+    return compose_select(*state_tables(sads_u))
+
+
+def spiral_search(cur_y: torch.Tensor, pad_prev: torch.Tensor, bs: int = 16) -> torch.Tensor:
+    """The stateful-exact search, plain: mv (..., mbh, mbw, 2) int32 in the
+    reference's convention mv = -(chosen offset), (x, y) order.
+
+    Computes the canonical selection; iff some MB breaks early (two zero-SAD
+    evaluations in its canonical walk, the only event that changes the
+    walk state), it adds the remaining union offsets and the state
+    composition.  The branch is taken on the host."""
+    dev = cur_y.device
+    neg_union = device_table(NEG_UNION, dev)
+    step_rows = device_table(SPIRAL_STATE_IDX[0].astype(np.int64), dev)
+    sads_c = sad_dense(cur_y, pad_prev, SPIRAL_UNION[:N_CANON], bs)
+    best0, steps0 = _select_from_seq(sads_c[..., step_rows, :, :])
+    if bool((steps0 < 64).any()):
+        extra = sad_dense(cur_y, pad_prev, SPIRAL_UNION[N_CANON:], bs)
+        return neg_union[stateful_select(torch.cat([sads_c, extra], dim=-3)).to(torch.int64)]
+    return neg_union[step_rows[best0.to(torch.int64)]]
 
 
 def window_start(start: torch.Tensor, dim: int, bs: int) -> torch.Tensor:

@@ -5,8 +5,9 @@
 * the sha256 that chip_smoke.py checks on the card is the JAX package's;
 * fast mode: the JAX decoder reads the port's stream, and its PSNR-Y is
   within 0.05 dB of the JAX fast encode's;
-* the entry point: no silent CPU fallback, and configurations outside the
-  all-intra slice are refused.
+* the entry point: no silent CPU fallback, sharding and the host writer
+  refused, and at intra periods 2 and 10 the parser reads back every
+  symbol the encoder emitted.
 """
 import ast
 import hashlib
@@ -20,7 +21,9 @@ import chip_smoke
 from icspcodec_tpu import codec as jcodec
 from icspcodec_tpu.config import CodecConfig as JConfig
 from icspcodec_torch import codec as tcodec
+from icspcodec_torch.bitstream_device import frame_items_dev
 from icspcodec_torch.config import CodecConfig as TConfig
+from icspcodec_torch.runtime import parse_body
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -80,13 +83,41 @@ def test_encode_without_gpu_raises(monkeypatch):
         tcodec.encode(y, cb, cr, TConfig(width=96, height=64))
 
 
-@pytest.mark.parametrize("bad", [dict(intra_period=10), dict(intra_period=2),
-                                 dict(gop_shards=2), dict(tile_shards=2),
+@pytest.mark.parametrize("bad", [dict(gop_shards=2), dict(tile_shards=2),
                                  dict(entropy="host")])
 def test_configs_outside_the_slice_are_refused(bad):
     y, cb, cr = _frames(f=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcodec.encode(y, cb, cr, TConfig(width=96, height=64, **bad), device="cpu")
+
+
+@pytest.mark.parametrize("period", [2, 10])
+def test_inter_encode_symbols_read_back(period):
+    """11 frames: five full GOPs and a one-frame intra GOP at period 2, one
+    full GOP and a one-frame intra GOP at period 10.  The port's parser
+    reads back exactly the symbols the encoder emitted, frame by frame.
+
+    The writer keeps the stream's final partial byte in its LOW bits (the
+    reference's tail convention) and the parser, like the JAX package's,
+    reads every byte MSB-first, so the stream's last few bits read back
+    otherwise; the test moves them to the high bits before parsing."""
+    y, cb, cr = _frames(period, f=11)
+    cfg = TConfig(width=96, height=64, intra_period=period, precision="fast")
+    bits, rec = tcodec.encode(y, cb, cr, cfg, device="cpu")
+    assert rec["y"].shape == y.shape and len(bits) > 14
+    (isyms, iidx), (psyms, pidx), _ = tcodec.encode_symbols(
+        *(torch.from_numpy(a) for a in (y, cb, cr)), cfg, return_recon=False)
+    assert sorted(iidx.tolist()) == list(range(0, 11, period))
+    assert sorted(np.concatenate([iidx, pidx]).tolist()) == list(range(11))
+    nbits = sum(int(frame_items_dev(s, intra)[1].sum()) for s, intra in ((isyms, True),
+                                                                         (psyms, False)))
+    body = bytearray(bits[14:])
+    assert len(body) == nbits // 8 + 1
+    body[-1] = (body[-1] << (8 - nbits % 8)) & 0xFF if nbits % 8 else body[-1]
+    parsed = parse_body(bytes(body), 11, 64, 96, period)
+    for syms, idx in ((isyms, iidx), (psyms, pidx)):
+        for k, v in syms.items():
+            assert np.array_equal(parsed[k][idx], v.numpy()), k
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -55,22 +55,11 @@ def _content(seed, f=F):
 
 
 def _static_content(f=F):
-    """Static-trigger content (tools/make_content.py's synthStatic idea at
-    64x96): saturated black and white blocks repeated across frames beside
-    a moving texture.  The black MB's zero SAD fires the encoder's early
-    break, which mirrors the spiral for the MBs after it."""
-    rng = np.random.default_rng(0)
-    yy, xx = np.mgrid[0:H, 0:W]
-    tex = 110 + 50 * np.sin(xx / 7.0) + 35 * np.cos(yy / 5.0) + rng.normal(0, 6, (H, W))
-    ys = []
-    for t in range(f):
-        fr = np.roll(tex, (t, 3 * t), axis=(0, 1))
-        fr[0:16, 0:32] = 0
-        fr[48:64, 64:96] = 255
-        ys.append(fr)
-    y = np.clip(np.stack(ys), 0, 255).astype(np.uint8)
-    c = np.full((f, H // 2, W // 2), 128, np.uint8)
-    return y, c, c.copy()
+    """Static-trigger content: saturated black and white blocks repeated
+    across frames beside a moving texture (chip_smoke.static_trigger_input).
+    The black MB's zero SAD fires the encoder's early break, which mirrors
+    the spiral for the MBs after it."""
+    return chip_smoke.static_trigger_input(f, H, W)
 
 
 @functools.lru_cache(maxsize=None)
