@@ -63,6 +63,25 @@ JAX package's output.  Phases, each of which fails the run:
               of 4 frames, an exact CIF synthStatic GOP (10 frames) and a
               CIF decode of one GOP (10 frames) give the same bytes and
               planes on the card and the CPU
+ 14. search   sad_best and sad_union (the unfused search entry points) vs
+              plain on phase 8's benchA, synthStatic and 720p inputs,
+              bit-identical; sad_best's best equals D's wherever zc < 2, its
+              MVs on benchA equal ops/me.spiral_search's, sad_union equals
+              D's canonical rows followed by G's; the unfused search of the
+              JAX package's ME-kernel tool (sad_best, then luma and chroma MC
+              through kernel E) run once on a benchA P-step (launch
+              counters) and timed
+ 15. stream   encode_streaming: exact at CIF, 30 frames, period 10, equal to
+              codec.encode's bytes, and a resume after deleting one chunk
+              re-encodes that GOP alone to the same bytes; fast at CIF300,
+              period 10, timed, its bytes compared with phase 10's
+              (identical, or size within 0.5% and decoded PSNR-Y within 0.05
+              dB)
+ 16. host/cli codec.encode(entropy="host") at CIF300, period 10, fast: phase
+              10's bytes; timed, with the host writer alone.  Then
+              `python -m icspcodec_torch.cli encode` and `decode --orig` as
+              subprocesses on a CIF300 .yuv file: phase 10's bytes, and the
+              printed PSNR-Y within 0.05 dB of phase 10's recon; wall times
 
 Prints a JSON `kernels` line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}.  Exits non-zero, printing no
@@ -72,11 +91,16 @@ from __future__ import annotations
 
 import hashlib
 import json
+import pathlib
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
+
+REPO = pathlib.Path(__file__).resolve().parent
 
 W, H, NF = 352, 288, 300
 PEAK_BYTES_S = 3.35e12        # H100 SXM HBM3
@@ -284,10 +308,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = True
 
     from icspcodec_torch import codec
+    from icspcodec_torch.bitstream import write_bitstream_grouped
     from icspcodec_torch.bitstream_device import frame_items_dev
     from icspcodec_torch.codec import _DEC_INTER_KEYS, _DEC_INTRA_KEYS, _INTRA_KEYS
     from icspcodec_torch.config import CodecConfig
-    from icspcodec_torch.constants import COS_DEC
+    from icspcodec_torch.constants import COS_DEC, SPIRAL
     from icspcodec_torch.bitstream_device import assemble_frames
     from icspcodec_torch.engine.inter import (decode_gop_mvs, decode_inter_frame,
                                               encode_inter_frame)
@@ -296,11 +321,14 @@ def main() -> int:
                                               from_blocks, to_blocks)
     from icspcodec_torch.ops import (_build, dc_fused, intra_decode_fused, intra_fused, mc_fused,
                                      me_fused, xform_fused)
-    from icspcodec_torch.ops.me import mv_diff_field, window_start
+    from icspcodec_torch.io import save_yuv420
+    from icspcodec_torch.metrics import MetricsLog
+    from icspcodec_torch.ops.me import mv_diff_field, spiral_search, window_start
     from icspcodec_torch.ops.pad import pad_image
     from icspcodec_torch.ops.quant import c_trunc
     from icspcodec_torch.ops.transforms import fdct, idct
     from icspcodec_torch.runtime import parse_body
+    from icspcodec_torch.streaming import _gop_fingerprint, encode_streaming
     from icspcodec_torch.tables import (CHROMA_OFFSETS, NEG_SPIRAL, NEG_UNION, SPIRAL_TO_CHROMA,
                                         pack_header)
 
@@ -318,12 +346,14 @@ def main() -> int:
         intra_fused.launches = dc_fused.launches = dc_fused.launches_inv = 0
         intra_decode_fused.launches = mc_fused.launches = 0
         me_fused.launches = me_fused.launches_extra = xform_fused.launches = 0
+        me_fused.launches_best = me_fused.launches_union = 0
 
     def counts():
         return {"A": intra_fused.launches, "B": dc_fused.launches,
                 "B'": dc_fused.launches_inv, "C": intra_decode_fused.launches,
                 "E": mc_fused.launches, "D": me_fused.launches,
-                "F": xform_fused.launches, "G": me_fused.launches_extra}
+                "F": xform_fused.launches, "G": me_fused.launches_extra,
+                "sad_best": me_fused.launches_best, "sad_union": me_fused.launches_union}
 
     # ---- 1. build ---------------------------------------------------------
     t0 = time.time()
@@ -336,7 +366,8 @@ def main() -> int:
     y, cb, cr = cif_content(NF)
     yt = torch.from_numpy(y).to(dev)
     ct = torch.from_numpy(np.concatenate([cb, cr])).to(dev)
-    err = {k: 0 for k in ("A", "B", "B'", "C", "E", "D", "F", "G")}  # largest |kernel - plain|
+    err = {k: 0 for k in ("A", "B", "B'", "C", "E", "D", "F", "G", "sad_best",
+                          "sad_union")}  # largest |kernel - plain|
 
     # ---- 2. kernels B and B' vs plain -------------------------------------
     for dtype in (torch.float32, torch.float64):
@@ -593,9 +624,11 @@ def main() -> int:
     rng = np.random.default_rng(720)
     y7 = torch.from_numpy(rng.integers(0, 256, (3, 720, 1280), dtype=np.uint8)).to(dev)
     y7[1:, 96:304, 192:512] = y7[:2, 96:304, 192:512]
-    for name, cur, prv in (("benchA", yt[1:ng + 1], prev["recon_y"]),
-                           ("synthStatic", syt[1:], sprev["recon_y"]), ("720p", y7[1:], y7[:2])):
-        cur, pad = cur.contiguous(), pad_image(prv, 16)
+    me_cases = [(name, cur.contiguous(), pad_image(prv, 16))
+                for name, cur, prv in (("benchA", yt[1:ng + 1], prev["recon_y"]),
+                                       ("synthStatic", syt[1:], sprev["recon_y"]),
+                                       ("720p", y7[1:], y7[:2]))]
+    for name, cur, pad in me_cases:
         kd, pd = me_fused.sad_mc_best(cur, pad), me_fused.sad_mc_best_plain(cur, pad)
         kg, pg = me_fused.sad_union_extra(cur, pad), me_fused.sad_union_extra_plain(cur, pad)
         ed, eg = max(max_abs(a, b) for a, b in zip(kd, pd)), max_abs(kg, pg)
@@ -605,7 +638,7 @@ def main() -> int:
         print(f"kernels D and G on {name} ({cur.shape[0]} frames of {cur.shape[2]}x{cur.shape[1]}, "
               f"{int((pd[1] >= 2).sum())} MBs with zc >= 2): bit-identical", flush=True)
     del kd, pd, kg, pg, y7, sprev
-    cur_d, pad_d = yt[1:ng + 1].contiguous(), pad_image(prev["recon_y"], 16)
+    cur_d, pad_d = me_cases[0][1:]
     kd_ms = event_ms(lambda: me_fused.sad_mc_best(cur_d, pad_d), 20)
     pd_ms = event_ms(lambda: me_fused.sad_mc_best_plain(cur_d, pad_d), 3)
     kg_ms = event_ms(lambda: me_fused.sad_union_extra(cur_d, pad_d), 20)
@@ -942,6 +975,167 @@ def main() -> int:
     print(f"xcheck: exact-mode CIF decode of one GOP ({period} frames) identical on the card "
           "and the CPU", flush=True)
 
+    # ---- 14. the unfused search entry points: sad_best and sad_union -------
+    for name, cur, pad in me_cases:
+        kb, pb = me_fused.sad_best(cur, pad), me_fused.sad_best_plain(cur, pad)
+        ku, pu = me_fused.sad_union(cur, pad), me_fused.sad_union_plain(cur, pad)
+        eb, eu = max(max_abs(a, b) for a, b in zip(kb, pb)), max_abs(ku, pu)
+        err["sad_best"], err["sad_union"] = max(err["sad_best"], eb), max(err["sad_union"], eu)
+        check(eb == 0, f"sad_best on {name}: differs from plain by {eb}")
+        check(eu == 0, f"sad_union on {name}: differs from plain by {eu}")
+        kd = me_fused.sad_mc_best(cur, pad)
+        free = kb[1] < 2
+        check(torch.equal(kb[0][free], kd[0][free]),
+              f"sad_best's best differs from D's on {name} where zc < 2")
+        check(torch.equal(ku, torch.cat([kd[2], me_fused.sad_union_extra(cur, pad)], dim=1)),
+              f"sad_union on {name} is not D's canonical rows followed by G's")
+        print(f"sad_best and sad_union on {name}: bit-identical; {int((~free).sum())} MBs with "
+              "zc >= 2 take the second zero, the rest D's best; sad_union = D's rows + G's",
+              flush=True)
+    del kb, pb, ku, pu, kd, me_cases
+    zc_a = me_fused.sad_best(cur_d, pad_d)[1]
+    check(not bool((zc_a >= 2).any()), "benchA has an MB with zc >= 2")
+    s2c = torch.from_numpy(SPIRAL_TO_CHROMA).to(dev)
+
+    def unfused_search():
+        """The JAX package's ME-kernel tool's unfused search on the port: the
+        picks of sad_best, then the luma and chroma (Cb and Cr) predictors
+        at them through kernel E."""
+        best = me_fused.sad_best(cur_d, pad_d)[0]
+        cidx = s2c[best.long()]
+        return (best, mc_fused.mc_select(pad_d, best, SPIRAL, 16),
+                mc_fused.mc_select(padc_d, torch.cat([cidx, cidx]), CHROMA_OFFSETS, 8))
+
+    reset_counts()
+    best_s, pred_s, predc_s = unfused_search()
+    union_s = me_fused.sad_union(cur_d, pad_d)
+    torch.cuda.synchronize()
+    launches_search = counts()
+    check(launches_search["sad_best"] >= 1 and launches_search["sad_union"] >= 1
+          and launches_search["E"] >= 2,
+          f"the unfused search did not launch sad_best, sad_union and E: {launches_search}")
+    check(torch.equal(pred_s, pred_d) and torch.equal(predc_s, predc_d),
+          "the unfused search's predictors on benchA differ from the fused search's")
+    check(torch.equal(spiral_search(cur_d, pad_d),
+                      torch.from_numpy(NEG_SPIRAL).to(dev)[best_s.long()]),
+          "sad_best's MVs on benchA differ from ops/me.spiral_search's")
+    check(union_s.shape == (ng, len(NEG_UNION), H // 16, W // 16), "sad_union has the wrong shape")
+    ksb_ms = event_ms(lambda: me_fused.sad_best(cur_d, pad_d), 20)
+    psb_ms = event_ms(lambda: me_fused.sad_best_plain(cur_d, pad_d), 3)
+    ksu_ms = event_ms(lambda: me_fused.sad_union(cur_d, pad_d), 20)
+    psu_ms = event_ms(lambda: me_fused.sad_union_plain(cur_d, pad_d), 3)
+    search_ms = event_ms(unfused_search, 20)
+    print("unfused search on a benchA P-step (30 CIF frames; MVs = spiral_search's, predictors "
+          "= D's fused ones): " + json.dumps(dict(
+              sad_best_ms=ksb_ms, sad_union_ms=ksu_ms, unfused_search_ms=search_ms,
+              fused_search_D_ms=kd_ms, launches=launches_search)), flush=True)
+    # each input byte read once, each output written once; one operation per
+    # byte absolute difference accumulated (64 steps or 129 offsets x 256 px)
+    sb_bytes = cur_d.numel() + pad_d.numel() + nmb * 2 * 4 + 64 * 2 * 4
+    sb_ops = nmb * 64 * 256
+    sb_bound = max(sb_bytes / PEAK_BYTES_S, sb_ops / PEAK_LANE_OP_S) * 1e3
+    su_bytes = cur_d.numel() + pad_d.numel() + nmb * len(NEG_UNION) * 4 + len(NEG_UNION) * 2 * 4
+    su_ops = nmb * len(NEG_UNION) * 256
+    su_bound = max(su_bytes / PEAK_BYTES_S, su_ops / PEAK_LANE_OP_S) * 1e3
+    del best_s, pred_s, predc_s, union_s
+
+    # ---- 15. streaming: per-GOP durable chunks and resume ------------------
+    n30 = 3 * period
+    xs_cfg = CodecConfig(width=W, height=H, qp_dc=16, qp_ac=16, intra_period=period,
+                         precision="exact")
+    clip = (y[:n30], cb[:n30], cr[:n30])
+    want_x, _ = codec.encode(*clip, xs_cfg, return_recon=False)
+    with tempfile.TemporaryDirectory() as wd:
+        log = MetricsLog()
+        got = encode_streaming(*clip, xs_cfg, wd, metrics=log)
+        check(got == want_x and len(log.records) == 3,
+              f"exact streaming of 30 CIF frames: {len(log.records)} records, bytes "
+              f"{'equal' if got == want_x else 'differ'} (codec.encode's)")
+        pathlib.Path(wd, "gop_00001.npz").unlink()
+        log = MetricsLog()
+        got = encode_streaming(*clip, xs_cfg, wd, metrics=log)
+        check(got == want_x and [r.gop_index for r in log.records] == [1],
+              f"exact streaming resume: records {[r.gop_index for r in log.records]}, bytes "
+              f"{'equal' if got == want_x else 'differ'}")
+    print(f"stream exact CIF, {n30} frames, period 10: codec.encode's bytes ({len(want_x)}); a "
+          "resume after deleting GOP 1's chunk re-encoded GOP 1 alone to the same bytes",
+          flush=True)
+
+    stream_log = MetricsLog()
+
+    def stream_fast(log=stream_log):
+        with tempfile.TemporaryDirectory() as wd:
+            return encode_streaming(y, cb, cr, cfg10, wd, metrics=log)
+
+    bits_st = stream_fast(MetricsLog())
+    stream_ms = event_ms(stream_fast, reps=3, warmup=0)
+    # where the time goes: the rounds (upload, engines, items, pack, pull and
+    # MSE; the GOP records' walls) and the content fingerprints; the rest is
+    # the chunk files and the final splice
+    rounds_ms = sum(r.wall_s for r in stream_log.records) * 1e3 / 3
+    fp_ms = event_ms(lambda: [_gop_fingerprint(y[i:i + period], cb[i:i + period],
+                                               cr[i:i + period], cfg10)
+                              for i in range(0, NF, period)], 3)
+    st_res = dict(frames=NF, bytes=len(bits_st), identical_to_phase10=bits_st == bits10,
+                  stream_ms=stream_ms, stream_fps=NF / (stream_ms / 1e3), rounds_ms=rounds_ms,
+                  fingerprints_ms=fp_ms, chunks_and_splice_ms=stream_ms - rounds_ms - fp_ms,
+                  codec_encode_ms_phase10=enc10_ms)
+    if bits_st != bits10:
+        dec_st = codec.decode(bits_st, NF, precision="fast")
+        st_res.update(size_rel_diff=abs(len(bits_st) - len(bits10)) / len(bits10),
+                      decoded_psnr_y_db=psnr(dec_st["y"], y), phase10_decoded_psnr_y_db=psnr_d10)
+        check(st_res["size_rel_diff"] <= 0.005
+              and abs(st_res["decoded_psnr_y_db"] - psnr_d10) <= 0.05,
+              f"fast streaming differs from phase 10 beyond tolerance: {st_res}")
+        del dec_st
+    print("stream CIF300 period 10 fast (rounds of up to 16 GOPs): " + json.dumps(st_res),
+          flush=True)
+
+    # ---- 16. the host writer and the CLI ------------------------------------
+    cfg10h = CodecConfig(width=W, height=H, qp_dc=16, qp_ac=16, intra_period=period,
+                         precision="fast", entropy="host")
+    t0 = time.perf_counter()
+    bits_h, _ = codec.encode(y, cb, cr, cfg10h)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    check(bits_h == bits10, "codec.encode(entropy='host') differs from phase 10's bytes")
+    (isy, iix), (psy, pix), _ = codec.encode_symbols(yt, cbt, crt, cfg10, return_recon=False)
+    t0 = time.perf_counter()
+    hsyms = (codec.host_symbols(isy), codec.host_symbols(psy))
+    pull_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    bits_w = write_bitstream_grouped(hsyms[0], iix, hsyms[1], pix, NF, H, W, 16, 16, period)
+    writer_ms = (time.perf_counter() - t0) * 1e3
+    check(bits_w == bits10, "the host writer's stream differs from phase 10's bytes")
+    print("encode period-10 CIF300 fast, entropy='host' (phase 10's bytes): " + json.dumps(dict(
+        encode_ms=host_ms, encode_fps=NF / (host_ms / 1e3), symbol_pull_ms=pull_ms,
+        host_writer_ms=writer_ms, device_entropy_encode_ms_phase10=enc10_ms)), flush=True)
+    del isy, psy, hsyms
+
+    def run_cli(*args):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "icspcodec_torch.cli", *args], cwd=REPO,
+                           capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(r.returncode == 0, f"the CLI's {args[0]} failed: {r.stderr[-3000:]}")
+        return r.stdout.strip(), wall
+
+    with tempfile.TemporaryDirectory() as td:
+        yuv, out_bin = pathlib.Path(td, "benchA_cif.yuv"), pathlib.Path(td, "benchA.bin")
+        save_yuv420(yuv, y, cb, cr)
+        enc_out, enc_wall = run_cli("encode", "-i", str(yuv), "-n", str(NF), "-q", "16",
+                                    "--intraPeriod", str(period), "--precision", "fast",
+                                    "-o", str(out_bin))
+        check(out_bin.read_bytes() == bits10, "the CLI's stream differs from phase 10's bytes")
+        dec_out, dec_wall = run_cli("decode", "-i", str(out_bin), "-n", str(NF), "--precision",
+                                    "fast", "--orig", str(yuv), "-o", str(pathlib.Path(td, "d")))
+    m = re.search(r"mean Y-PSNR: ([0-9.]+) dB", dec_out)
+    check(m is not None and abs(float(m.group(1)) - psnr10) <= 0.05,
+          f"the CLI decode's PSNR line {dec_out!r} is not within 0.05 dB of the recon's {psnr10}")
+    print("CLI CIF300 period 10 fast, as subprocesses (phase 10's bytes; PSNR-Y within 0.05 dB "
+          "of the recon): " + json.dumps(dict(encode_wall_s=enc_wall, decode_wall_s=dec_wall,
+                                              encode_line=enc_out, decode_lines=dec_out)),
+          flush=True)
+
     kernels = [
         dict(name="intra_luma_wavefront", route="cuda",
              source="icspcodec_torch/csrc/intra_luma.cu",
@@ -1007,6 +1201,23 @@ def main() -> int:
                    "are one P-step (30 CIF frames)",
              path="period-10 encode of synthStatic",
              launches_period10_encode=launches_enc10["G"]),
+        dict(name="sad_best", route="cuda", source="icspcodec_torch/csrc/sad_mc.cu",
+             replaces="icspcodec_tpu/ops/pallas_me.py:113", launches=launches_search["sad_best"],
+             max_abs_err=err["sad_best"], ms=ksb_ms, plain_ms=psb_ms, bound_ms=sb_bound,
+             bound_by="operations" if sb_ops / PEAK_LANE_OP_S > sb_bytes / PEAK_BYTES_S
+             else "bytes", library_ms=None,
+             check="bit-identical on benchA, synthStatic (CIF, 30 frames) and 720p; best = D's "
+                   "where zc < 2; MVs = spiral_search's on benchA; times are one P-step "
+                   "(30 CIF frames)",
+             path="unfused search (sad_best, then luma and chroma MC through E)"),
+        dict(name="sad_union", route="cuda", source="icspcodec_torch/csrc/sad_mc.cu",
+             replaces="icspcodec_tpu/ops/pallas_me.py:366", launches=launches_search["sad_union"],
+             max_abs_err=err["sad_union"], ms=ksu_ms, plain_ms=psu_ms, bound_ms=su_bound,
+             bound_by="operations" if su_ops / PEAK_LANE_OP_S > su_bytes / PEAK_BYTES_S
+             else "bytes", library_ms=None,
+             check="bit-identical on benchA, synthStatic (CIF, 30 frames) and 720p; = D's "
+                   "canonical rows followed by G's; times are one P-step (30 CIF frames)",
+             path="unfused search (G's entry point at all 129 union offsets)"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -9,6 +9,8 @@ per P-frame position kernels D, E, F and, where the reference's walk breaks
 early, G).  Then device-side entropy items and bit packing
 (bitstream_device.py), and the host splice plus the 14-byte header.  Only
 the packed frames (and, if asked, the recon planes) come back to the host.
+With cfg.entropy="host" the symbols come back instead and the numpy writer
+(bitstream.py) packs them: the same bytes.
 
 decode() reads any stream the codec writes, at every intra period: the
 host parser (runtime/) produces fixed-shape symbol arrays, which go to the
@@ -29,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .bitstream import write_bitstream_grouped
 from .bitstream_device import assemble_frames, frame_items_dev, pack_frames_dev
 from .config import CodecConfig
 from .constants import COS_DEC, COS_ENC
@@ -63,10 +66,6 @@ def _check_supported(cfg: CodecConfig) -> None:
         raise ValueError(f"intra_period must be >= 0, got {cfg.intra_period}")
     if cfg.gop_shards > 1 or cfg.tile_shards > 1:
         raise NotImplementedError(_SHARDING)
-    if cfg.entropy == "host":
-        raise NotImplementedError(
-            "entropy='host': the host bitstream writer is not ported yet "
-            "(ROADMAP.md queue 1 item 10); entropy='auto' or 'device' give the same bytes")
     if cfg.precision not in ("exact", "fast"):
         raise ValueError(f"precision must be exact|fast, got {cfg.precision!r}")
 
@@ -87,13 +86,12 @@ def _pack_bucketed(codes: torch.Tensor, lengths: torch.Tensor, slab: int = 32):
     return rows, [int(b) for b in nb]
 
 
-def write_stream(intra_syms, intra_idx, inter_syms, inter_idx, nframes: int, height: int,
-                 width: int, qdc: int, qac: int, period: int) -> bytes:
-    """Serialize batched symbol groups, intra and inter, into one stream in
-    display order: the device-side counterpart of the JAX package's
-    bitstream.write_bitstream_grouped.  *_syms: dicts of (F, ...) symbol
-    tensors on one device (inter frames carry mv_diff), or None; *_idx: the
-    display index of each of their frames."""
+def packed_rows(intra_syms, intra_idx, inter_syms, inter_idx, nframes: int):
+    """Entropy-code and pack batched symbol groups on their device: (rows,
+    nbits), per frame in display order, the packed bytes (numpy uint8) and
+    their bit counts.  *_syms: dicts of (n, ...) symbol tensors on one
+    device (inter frames carry mv_diff), or None; *_idx: the display index
+    of each of their frames."""
     rows, nbits = [None] * nframes, [None] * nframes
     for syms, idx, is_intra in ((intra_syms, intra_idx, True), (inter_syms, inter_idx, False)):
         if syms is None:
@@ -101,7 +99,30 @@ def write_stream(intra_syms, intra_idx, inter_syms, inter_idx, nframes: int, hei
         codes, lengths = frame_items_dev(syms, is_intra)
         for n, row, nb in zip(idx, *_pack_bucketed(codes, lengths)):
             rows[int(n)], nbits[int(n)] = row, nb
+    return rows, nbits
+
+
+def write_stream(intra_syms, intra_idx, inter_syms, inter_idx, nframes: int, height: int,
+                 width: int, qdc: int, qac: int, period: int) -> bytes:
+    """Serialize batched symbol groups, intra and inter, into one stream in
+    display order on their device (packed_rows), then splice the frames on
+    the host: the device-side counterpart of bitstream.write_bitstream_grouped."""
+    rows, nbits = packed_rows(intra_syms, intra_idx, inter_syms, inter_idx, nframes)
     return pack_header(height, width, qdc, qac, period) + assemble_frames(rows, nbits)
+
+
+def _acflag(scan: np.ndarray) -> np.ndarray:
+    return (np.count_nonzero(scan[..., 1:], axis=-1) == 0).astype(np.int32)
+
+
+def host_symbols(syms: dict | None) -> dict | None:
+    """Symbol tensors pulled to numpy for the host writer, with y_acflag
+    computed on the host from y_scan, as the JAX package's host route does."""
+    if syms is None:
+        return None
+    out = {k: v.cpu().numpy() for k, v in syms.items() if k != "y_acflag"}
+    out["y_acflag"] = _acflag(out["y_scan"])
+    return out
 
 
 def encode_symbols(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor, cfg: CodecConfig,
@@ -162,6 +183,9 @@ def encode(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, cfg: CodecConfig,
 
     device: where to run; None means the CUDA card, and raises when there is
     none.  device="cpu" runs the plain versions of the kernels (the tests do).
+    cfg.entropy: "auto" and "device" entropy-code and pack on the device and
+    pull only the packed frames; "host" pulls the symbols and packs them
+    with the numpy writer.  The bytes are the same.
     """
     _check_supported(cfg)
     dev = resolve_device(device)
@@ -171,8 +195,12 @@ def encode(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, cfg: CodecConfig,
                     for a in (y, cb, cr))
     (isyms, iidx), inter, rec = encode_symbols(yt, cbt, crt, cfg, return_recon)
     psyms, pidx = inter if inter is not None else (None, None)
-    bits = write_stream(isyms, iidx, psyms, pidx, y.shape[0], cfg.height, cfg.width,
-                        cfg.qp_dc, cfg.qp_ac, cfg.intra_period)
+    args = (y.shape[0], cfg.height, cfg.width, cfg.qp_dc, cfg.qp_ac, cfg.intra_period)
+    if cfg.entropy == "host":
+        bits = write_bitstream_grouped(host_symbols(isyms), iidx, host_symbols(psyms), pidx,
+                                       *args)
+    else:
+        bits = write_stream(isyms, iidx, psyms, pidx, *args)
     if rec is not None:
         rec = {k: v.cpu().numpy() for k, v in rec.items()}
     return bits, rec

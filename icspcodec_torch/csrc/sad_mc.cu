@@ -1,10 +1,13 @@
-// Kernels D and G: the motion search of the inter encoder, for sm_90a.
+// Kernels D and G, and the unfused search: the motion search, for sm_90a.
 //
 // Replaces: icspcodec_tpu/ops/pallas_me.py::sad_mc_best (D, the fused
-// search behind the encoder's fixed branch) and ::_sad_dense_rolls as
-// sad_union_extra calls it (G, the SADs the stateful branch adds).  Each
-// computes what its plain PyTorch version computes (ops/me_fused.py:
-// sad_mc_best_plain, sad_union_extra_plain), in integers: bit-identical.
+// search behind the encoder's fixed branch), ::_sad_dense_rolls as
+// sad_union_extra calls it (G, the SADs the stateful branch adds) and as
+// sad_union calls it (all 129 union offsets, the same entry point), and
+// ::sad_best (the unfused search with the reference's whole selection
+// rule).  Each computes what its plain PyTorch version computes
+// (ops/me_fused.py: sad_mc_best_plain, sad_union_extra_plain,
+// sad_union_plain, sad_best_plain), in integers: bit-identical.
 //
 // D, per 16x16 macroblock against the previous reconstruction padded by 16
 // px: the SAD of each of the 64 canonical spiral *steps* (steps 0 and 1 are
@@ -16,7 +19,9 @@
 // rows of the 63 distinct canonical offsets in union order (row
 // SPIRAL_STATE_IDX[0][rank]); and the 16x16 predictor at the winning
 // offset.  G: the SADs at the 66 non-canonical union offsets, in union
-// order.
+// order.  sad_best: D's 64 step SADs and key reduction, then the
+// reference's second-zero override (the walk breaks at its second zero-SAD
+// step, which wins), and only (best, zc) out.
 //
 // Bound on this card.  D, one P-step of 30 CIF frames: it reads 3.0 MB of
 // current frames and 3.7 MB of padded previous frames and writes 3.0 MB of
@@ -24,7 +29,8 @@
 // 3.35 TB/s.  Its work is 195 M byte absolute differences, accumulated:
 // at one 32-bit lane operation each (33.5e12 a second, chip_smoke.py's
 // PEAK_LANE_OP_S) that is 5.8 us, so operations bound it.  G does the same
-// for 66 offsets with no predictor.
+// for 66 offsets with no predictor, sad_union for 129 (11.7 us), sad_best
+// for D's 64 steps with only the keys out.
 //
 // Design.  One CTA of 8 warps per MB (11,880 CTAs per CIF P-step): the MB's
 // 48x48 window of the padded previous frame (2.3 KB) goes to shared memory
@@ -121,6 +127,30 @@ sad_mc_best_kernel(const uint8_t* __restrict__ cur, const uint8_t* __restrict__ 
 }
 
 __global__ void __launch_bounds__(THREADS)
+sad_best_kernel(const uint8_t* __restrict__ cur, const uint8_t* __restrict__ pad, int H, int W,
+                const int* __restrict__ offs, int* __restrict__ best, int* __restrict__ zc) {
+  __shared__ uint8_t win[WIN * WIN];
+  __shared__ int sads[64];
+  const int mbw = W / MB, nmb = (H / MB) * mbw;
+  const int g = blockIdx.x / nmb, m = blockIdx.x % nmb;
+  mb_sads(cur, pad, H, W, g, m / mbw, m % mbw, offs, 64, win, sads);
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  const int s0 = sads[lane], s1 = sads[lane + 32];
+  int key = min(s0 * 64 + lane, s1 * 64 + lane + 32);  // first strict minimum
+  for (int o = 16; o > 0; o >>= 1) key = min(key, __shfl_xor_sync(FULL, key, o));
+  // bit k of zeros: step k's SAD is 0, steps in walk order
+  const unsigned long long zeros = (unsigned long long)__ballot_sync(FULL, s0 == 0) |
+                                   ((unsigned long long)__ballot_sync(FULL, s1 == 0) << 32);
+  if (lane == 0) {
+    const int z = __popcll(zeros);
+    // two or more zeros: the walk breaks at the second, which wins
+    best[(long long)g * nmb + m] = z >= 2 ? __ffsll(zeros & (zeros - 1)) - 1 : key & 63;
+    zc[(long long)g * nmb + m] = z;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
 sad_offsets_kernel(const uint8_t* __restrict__ cur, const uint8_t* __restrict__ pad, int H, int W,
                    const int* __restrict__ offs, int n, int* __restrict__ out) {
   __shared__ uint8_t win[WIN * WIN];
@@ -152,7 +182,18 @@ extern "C" int icsp_sad_mc_best(const void* cur, const void* pad, int nframes, i
   return (int)cudaGetLastError();
 }
 
-// G: the SADs at n <= 160 offsets into out (nframes, n, H/16, W/16) i32.
+// sad_best: offs holds the 64 canonical steps; best, zc (nframes, H/16,
+// W/16) i32.
+extern "C" int icsp_sad_best(const void* cur, const void* pad, int nframes, int H, int W,
+                             const int* offs, int* best, int* zc, void* stream) {
+  const long long nblk = (long long)nframes * (H / MB) * (W / MB);
+  sad_best_kernel<<<(unsigned)nblk, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(cur), static_cast<const uint8_t*>(pad), H, W, offs, best, zc);
+  return (int)cudaGetLastError();
+}
+
+// G and sad_union: the SADs at n <= 160 offsets into out (nframes, n,
+// H/16, W/16) i32.
 extern "C" int icsp_sad_offsets(const void* cur, const void* pad, int nframes, int H, int W,
                                 const int* offs, int n, int* out, void* stream) {
   if (n > MAX_OFFSETS) return (int)cudaErrorInvalidValue;

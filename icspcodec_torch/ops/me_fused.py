@@ -1,12 +1,15 @@
-"""The encoder's motion search: CUDA kernels D (sad_mc_best) and G
-(sad_union_extra), two entry points of csrc/sad_mc.cu, and their plain
-versions.
+"""The motion search: CUDA kernels D (sad_mc_best) and G (sad_union_extra)
+of the encoder, and the unfused search entry points sad_best and sad_union,
+all in csrc/sad_mc.cu, with their plain versions.
 
-Counterparts of icspcodec_tpu/ops/pallas_me.py::sad_mc_best and
-::sad_union_extra.  On a CPU tensor each wrapper runs its plain version
-(ops/me.sad_dense and the canonical selection); on a CUDA tensor it
-launches its kernel or raises.  Both are integer: bit-identical.  Each
-kernel has its own launch counter.
+Counterparts of icspcodec_tpu/ops/pallas_me.py::sad_mc_best,
+::sad_union_extra, ::sad_best and ::sad_union.  On a CPU tensor each
+wrapper runs its plain version (ops/me.sad_dense and the selections); on a
+CUDA tensor it launches its kernel or raises.  All are integer:
+bit-identical.  Each wrapper has its own launch counter.  sad_best and
+sad_union lie on no codec path (the encoder takes D and G): they are the
+public search entry points of the JAX package's kernel module, which its
+tools and tests call.
 """
 from __future__ import annotations
 
@@ -18,11 +21,13 @@ import torch
 from ..constants import SPIRAL, SPIRAL_STATE_IDX, SPIRAL_UNION
 from ..tables import N_CANON, NEG_SPIRAL
 from .mc_fused import mc_gather_plain
-from .me import device_table, sad_dense
+from .me import _select_from_seq, device_table, sad_dense
 from . import _build
 
 launches = 0        # kernel D launches, for showing that a run went through it
 launches_extra = 0  # kernel G launches
+launches_best = 0   # sad_best launches
+launches_union = 0  # sad_union launches (G's entry point at all 129 union offsets)
 
 
 def _lib_d():
@@ -39,6 +44,15 @@ def _lib_g():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, i, i, i, p, i, p, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _lib_best():
+    fn = _build.load("sad_mc").icsp_sad_best
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, i, i, i, p, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -112,6 +126,25 @@ def sad_union_extra_plain(cur: torch.Tensor, pad: torch.Tensor) -> torch.Tensor:
     return sad_dense(cur, pad, SPIRAL_UNION[N_CANON:])
 
 
+def _sad_offsets(cur: torch.Tensor, pad: torch.Tensor, offsets: np.ndarray, what: str):
+    """Launch G's entry point at `offsets` ((n, 2) within +-16, n <= 160) on
+    checked CUDA tensors: (G, n, mbh, mbw) int32.  Returns (out, launched)."""
+    g, h, w = cur.shape
+    dev = cur.device
+    n = len(offsets)
+    out = torch.empty((g, n, h // 16, w // 16), dtype=torch.int32, device=dev)
+    if g == 0:
+        return out, False
+    offs = device_table(offsets.astype(np.int32), dev)
+    src, padc = cur.contiguous(), pad.contiguous()
+    fn = _lib_g()
+    with torch.cuda.device(dev):
+        err = fn(src.data_ptr(), padc.data_ptr(), g, h, w, offs.data_ptr(), n, out.data_ptr(),
+                 _build.stream_ptr(dev))
+    _build.check(err, f"{what} kernel")
+    return out, True
+
+
 def sad_union_extra(cur: torch.Tensor, pad: torch.Tensor) -> torch.Tensor:
     """The SADs at the 66 non-canonical union offsets: (G, 66, mbh, mbw)
     int32 in union-row order (rows N_CANON.. of the union), for the same
@@ -121,19 +154,64 @@ def sad_union_extra(cur: torch.Tensor, pad: torch.Tensor) -> torch.Tensor:
     _check(cur, pad, "sad_union_extra")
     if cur.device.type == "cpu":
         return sad_union_extra_plain(cur, pad)
+    out, launched = _sad_offsets(cur, pad, SPIRAL_UNION[N_CANON:], "sad_union_extra")
+    launches_extra += launched
+    return out
+
+
+def sad_best_plain(cur: torch.Tensor, pad: torch.Tensor):
+    """The plain version of sad_best: the SADs of the 64 spiral steps by
+    sad_dense, the reference's selection (ops/me._select_from_seq) and the
+    count of zero-SAD steps.  Runs on any device."""
+    seq = sad_dense(cur, pad, SPIRAL)
+    best, _ = _select_from_seq(seq)
+    return best, (seq == 0).sum(dim=1, dtype=torch.int32)
+
+
+def sad_best(cur: torch.Tensor, pad: torch.Tensor):
+    """The unfused search with the reference's whole selection rule, for
+    the same inputs as sad_mc_best.  Returns (best, zc), (G, mbh, mbw)
+    int32: best is the spiral step selected (the MV is -SPIRAL[best]): the
+    first strict minimum, overridden by the second zero-SAD step when an MB
+    has two (steps 0 and 1 are both (0, 0), so a static MB gives 1); zc is
+    the number of zero-SAD steps.  best equals D's wherever zc < 2.  It
+    models no walk state across MBs, so its MVs are the stateful search's
+    (ops/me.spiral_search) only on frames where no MB has zc >= 2."""
+    global launches_best
+    _check(cur, pad, "sad_best")
+    if cur.device.type == "cpu":
+        return sad_best_plain(cur, pad)
     g, h, w = cur.shape
     dev = cur.device
-    offsets = SPIRAL_UNION[N_CANON:].astype(np.int32)   # all within the kernel's +-16
-    n = len(offsets)
-    out = torch.empty((g, n, h // 16, w // 16), dtype=torch.int32, device=dev)
+    best = torch.empty((g, h // 16, w // 16), dtype=torch.int32, device=dev)
+    zc = torch.empty_like(best)
     if g == 0:
-        return out
-    offs = device_table(offsets, dev)
+        return best, zc
+    offs = device_table(SPIRAL.astype(np.int32), dev)
     src, padc = cur.contiguous(), pad.contiguous()
-    fn = _lib_g()
+    fn = _lib_best()
     with torch.cuda.device(dev):
-        err = fn(src.data_ptr(), padc.data_ptr(), g, h, w, offs.data_ptr(), n, out.data_ptr(),
-                 _build.stream_ptr(dev))
-    _build.check(err, "sad_union_extra kernel")
-    launches_extra += 1
+        err = fn(src.data_ptr(), padc.data_ptr(), g, h, w, offs.data_ptr(), best.data_ptr(),
+                 zc.data_ptr(), _build.stream_ptr(dev))
+    _build.check(err, "sad_best kernel")
+    launches_best += 1
+    return best, zc
+
+
+def sad_union_plain(cur: torch.Tensor, pad: torch.Tensor) -> torch.Tensor:
+    """The plain version of sad_union: sad_dense at every union offset.
+    Runs on any device."""
+    return sad_dense(cur, pad, SPIRAL_UNION)
+
+
+def sad_union(cur: torch.Tensor, pad: torch.Tensor) -> torch.Tensor:
+    """The SADs at all 129 stateful-union offsets: (G, 129, mbh, mbw) int32
+    in SPIRAL_UNION row order, for the same inputs as sad_mc_best; the input
+    of ops/me.stateful_select.  Equal to D's sads_c followed by G's rows."""
+    global launches_union
+    _check(cur, pad, "sad_union")
+    if cur.device.type == "cpu":
+        return sad_union_plain(cur, pad)
+    out, launched = _sad_offsets(cur, pad, SPIRAL_UNION, "sad_union")
+    launches_union += launched
     return out

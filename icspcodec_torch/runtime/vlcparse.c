@@ -1,5 +1,5 @@
-/* Bitstream parser of the PyTorch port's decoder (host C, bound with ctypes
- * by runtime/__init__.py).
+/* Bitstream parser of the PyTorch port's decoder and the host writer's bit
+ * packer (host C, bound with ctypes by runtime/__init__.py).
  *
  * The bitstream's variable-length codes force a sequential parse; doing it
  * in Python costs minutes per 300-frame sequence, so the parse runs here and
@@ -14,6 +14,9 @@
  *  - Every symbol therefore fits int16, and the outputs are narrow: int16
  *    coefficients and MV differences, int8 flags.  The values are the JAX
  *    parser's.
+ *
+ * pack_items, the packer behind the host writer (bitstream.py), is the JAX
+ * package's unchanged.
  *
  * Syntax (reference intraBody/interBody, encoder source:4923-5236):
  *   intra MB: 4 x [ mpm(1) modebit(1) DC-VLC acflag(1) {63 zero bits | 63 AC-VLC} ]
@@ -150,4 +153,29 @@ long parse_frames(
         }
     }
     return br.pos;
+}
+
+/* MSB-first bit packer: items are (code, length) pairs with right-aligned
+ * code bits, each length at most 56.  Replicates the reference's tail
+ * convention (makebitstream): the final partial byte keeps its bits in the
+ * LOW positions and one extra zero byte is appended when the stream ends
+ * byte-aligned.  Returns the number of bytes written into out (caller sizes
+ * it as total_bits/8 + 1). */
+long pack_items(const uint64_t *codes, const int64_t *lengths, long n,
+                uint8_t *out) {
+    uint64_t acc = 0;   /* bit accumulator, MSB-first in low `fill` bits */
+    int fill = 0;
+    long nbytes = 0;
+    for (long i = 0; i < n; i++) {
+        int len = (int)lengths[i];
+        acc = (acc << len) | (codes[i] & ((len >= 64) ? ~0ULL : ((1ULL << len) - 1)));
+        fill += len;
+        while (fill >= 8) {
+            out[nbytes++] = (uint8_t)(acc >> (fill - 8));
+            fill -= 8;
+        }
+    }
+    /* tail: remaining bits stay in the LOW positions of the last byte */
+    out[nbytes++] = (uint8_t)(acc & ((fill >= 64) ? ~0ULL : ((1ULL << fill) - 1)));
+    return nbytes;
 }

@@ -5,8 +5,8 @@
 * the sha256 that chip_smoke.py checks on the card is the JAX package's;
 * fast mode: the JAX decoder reads the port's stream, and its PSNR-Y is
   within 0.05 dB of the JAX fast encode's;
-* the entry point: no silent CPU fallback, sharding and the host writer
-  refused, and at intra periods 2 and 10 the parser reads back every
+* the entry point: no silent CPU fallback, sharding refused (with either
+  writer), and at intra periods 2 and 10 the parser reads back every
   symbol the encoder emitted.
 """
 import ast
@@ -84,7 +84,7 @@ def test_encode_without_gpu_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("bad", [dict(gop_shards=2), dict(tile_shards=2),
-                                 dict(entropy="host")])
+                                 dict(entropy="host", gop_shards=2)])
 def test_configs_outside_the_slice_are_refused(bad):
     y, cb, cr = _frames(f=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
