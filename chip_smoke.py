@@ -28,7 +28,8 @@ JAX package's output.  Phases, each of which fails the run:
               warm-up
   5. kernel E motion compensation vs plain at CIF luma and chroma, MVs from
               the 129 union offsets and some leaving the padded frame:
-              bit-identical
+              bit-identical, both entry points (mc_gather, and mc_gather_yc,
+              the decoder's luma and chroma in one launch)
   6. kernel C intra luma decode vs plain: float64 at CIF (8 frames of the
               phase-4 stream, QP 16/16 and 1/1), QCIF and 720p,
               bit-identical; float32 on the CIF300 stream: at most 0.1% of
@@ -40,10 +41,13 @@ JAX package's output.  Phases, each of which fails the run:
               the port's intra recon of the frames before them, 30
               synthStatic frames likewise, and 720p frames with static
               regions; bit-identical
-  9. kernel F (forward residual chain) vs plain: float64 luma and chroma at
-              CIF, QP 16/16 and 1/1, and at 720p, bit-identical; float32 at
-              the CIF300 P-step shapes, at most 0.1% of symbols differing
-              and |dPSNR-Y| <= 0.05 dB in every frame
+  9. kernel F (forward residual chain) vs plain: float64 and float32 luma
+              and chroma at CIF, 720p and 1080p, and a 4096-line plane, QP
+              16/16 and 1/1, bit-identical; float32 at the CIF300 P-step
+              shapes bit-identical, and at most 0.1% of symbols differing
+              (the count printed) and |dPSNR-Y| <= 0.05 dB in every frame;
+              a call split over planes bit-identical; two device launches
+              a call
  10. encode   codec.encode of CIF300 at intra period 10, fast mode, through
               kernels A, B, D, E and F (launch counters); timed, stage by
               stage
@@ -51,12 +55,14 @@ JAX package's output.  Phases, each of which fails the run:
               zero-SAD break fires, so kernel G runs (launch counter); its
               decode's PSNR-Y within 0.05 dB of its recon
  12. decode   codec.decode at period 10 of phase 10's stream through C, B'
-              and E: PSNR-Y within 0.05 dB of the encoder's recon (which
-              bounds the drift of the encoder's reference frames from the
-              decoder's); timed, stage by stage; and of a seeded CIF300 stream
-              (intra frames from the port's encode of benchA, MVs from the
-              union offsets, sparse residuals) whose intra frames equal
-              phase 7's
+              and E (one launch a P-step): PSNR-Y within 0.05 dB of the
+              encoder's recon (which bounds the drift of the encoder's
+              reference frames from the decoder's); timed, stage by stage;
+              and of a seeded CIF300 stream (intra frames from the port's
+              encode of benchA, MVs from the union offsets, sparse residuals)
+              whose intra frames equal phase 7's; mc_gather_yc bit-identical
+              to plain at every P-step of both streams; E timed as one
+              launch, as two and as the library gather
  13. xcheck   exact mode: the encoded streams' sha256 (all-intra and period
               3 on static-trigger content) and the decoded planes' digests
               of two small streams equal the pinned JAX ones; a CIF encode
@@ -83,9 +89,10 @@ JAX package's output.  Phases, each of which fails the run:
               subprocesses on a CIF300 .yuv file: phase 10's bytes, and the
               printed PSNR-Y within 0.05 dB of phase 10's recon; wall times
 
-Prints a JSON `kernels` line, the card's name and power limit, and as its
-last line {"ok": true, "device": {...}}.  Exits non-zero, printing no
-result, without a CUDA device.
+Prints a JSON `kernels` line (each kernel's event time `ms` and the
+profiler's device time `device_ms` per call of the same function), the
+card's name and power limit, and as its last line {"ok": true, "device":
+{...}}.  Exits non-zero, printing no result, without a CUDA device.
 """
 from __future__ import annotations
 
@@ -105,6 +112,8 @@ REPO = pathlib.Path(__file__).resolve().parent
 W, H, NF = 352, 288, 300
 PEAK_BYTES_S = 3.35e12        # H100 SXM HBM3
 PEAK_F32_FLOP_S = 67e12       # H100 SXM float32, outside the tensor cores
+PEAK_F64_FLOP_S = 33.5e12     # H100 SXM float64, outside the tensor cores
+PEAK_F64_TC_FLOP_S = 67e12    # H100 SXM float64 on the tensor cores (DMMA)
 # 32-bit lane operations per second outside the tensor cores: the float32
 # rate with a multiply-add counted once.  A byte absolute difference
 # accumulated into a sum (the SAD kernels' work) counts as one operation.
@@ -295,6 +304,44 @@ def profile_run(fn, wall_ms: float) -> dict:
     busy = sum(r[0] for r in rows)
     return dict(device_ms=busy, busy_share=busy / wall_ms if rows else None,
                 top=[dict(ms=t, name=n[:70], calls=c) for t, n, c in rows[:10]])
+
+
+def device_profile(fn, reps: int = 10, tries: int = 3) -> dict:
+    """torch.profiler over `reps` calls of fn() after a warm-up: the self
+    device time per call of all its device events (kernels and copies), the
+    device events per call as recorded, and each event's ms per call by
+    name: its mean time times its launches per call, rounded.  The profiler
+    on the card sometimes drops records, or all of them: a session whose
+    every event count is not a multiple of reps is run again, up to `tries`
+    sessions, and the last one that recorded anything is kept."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    out = None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name, events, whole = {}, 0, True
+        for e in prof.key_averages():
+            if (e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                    and not e.key.startswith("Activity Buffer")):
+                name = e.key[:70]
+                per_call = max(1, round(e.count / reps))
+                by_name[name] = (by_name.get(name, 0.0)
+                                 + e.self_device_time_total / 1e3 / e.count * per_call)
+                events += e.count
+                whole = whole and e.count % reps == 0
+        if by_name:
+            out = dict(device_ms=sum(by_name.values()), events=events / reps, by_name=by_name)
+            if whole:
+                break
+    check(out is not None, "torch.profiler recorded no device time")
+    return out
 
 
 def main() -> int:
@@ -503,6 +550,10 @@ def main() -> int:
         oy, 16, 16, dtype=f32, recon_plane=True), 1)
     kb_ms = event_ms(lambda: dc_fused.dc_dpcm_fused(dc32, 16, chroma=True), 50)
     pb_ms = event_ms(lambda: dc_fused.dc_dpcm_plain(dc32, 16, chroma=True), 3)
+    dev_ms = {"A": device_profile(lambda: intra_fused.intra_luma_scan_fused(
+        oy, 16, 16, dtype=f32, recon_plane=True), 5)["device_ms"],
+              "B": device_profile(lambda: dc_fused.dc_dpcm_fused(dc32, 16, chroma=True))[
+                  "device_ms"]}   # the profiler's device ms per call of each timed function
 
     nblk = oy.shape[0] * oy.shape[1] * oy.shape[2]
     a_bytes = nblk * (64 + 128 + 3 + 64) + 2 * 64 * 64 * 4 + 64 * 4 + 36 * 44 * 4
@@ -529,6 +580,22 @@ def main() -> int:
         check(e == 0, f"kernel E block {block}: differs from plain by {e}")
         print(f"kernel E block {block}: bit-identical ({shape[0]} planes, {int(far.sum())} "
               "MVs outside the padded frame)", flush=True)
+
+    def check_yc(pad_y, pad_c, mv, what):
+        """mc_gather_yc against its plain version; returns the largest error."""
+        e = max(max_abs(a, b) for a, b in zip(mc_fused.mc_gather_yc(pad_y, pad_c, mv),
+                                              mc_fused.mc_gather_yc_plain(pad_y, pad_c, mv)))
+        check(e == 0, f"kernel E mc_gather_yc on {what}: differs from plain by {e}")
+        err["E"] = max(err["E"], e)
+
+    shape = (30, H // 16, W // 16)
+    mv = NEG_UNION[rng.integers(0, len(NEG_UNION), shape)]
+    far = rng.random(shape) < 0.05
+    mv = np.where(far[..., None], rng.integers(-400, 401, shape + (2,)), mv).astype(np.int32)
+    check_yc(pad_image(yt[:30], 16), pad_image(torch.cat([ct[:30], ct[NF:NF + 30]]), 8),
+             torch.from_numpy(mv).to(dev), "union and out-of-frame MVs")
+    print(f"kernel E mc_gather_yc (luma, Cb and Cr in one launch): bit-identical (30 frames, "
+          f"{int(far.sum())} MVs outside the padded frame)", flush=True)
 
     # ---- 6. kernel C vs plain ---------------------------------------------
     dsyms = parse_body(bits[14:], NF, H, W, 0)
@@ -605,6 +672,9 @@ def main() -> int:
         ys, mpm, mbit, 16, 16, dtype=f32), 1)
     kbi_ms = event_ms(lambda: dc_fused.idc_dpcm_fused(iq_c, chroma=True), 50)
     pbi_ms = event_ms(lambda: dc_fused.idc_dpcm_plain(iq_c, chroma=True), 3)
+    dev_ms["C"] = device_profile(lambda: intra_decode_fused.intra_luma_decode_fused(
+        ys, mpm, mbit, 16, 16, dtype=f32), 5)["device_ms"]
+    dev_ms["B'"] = device_profile(lambda: dc_fused.idc_dpcm_fused(iq_c, chroma=True))["device_ms"]
     c_bytes = nblk * (128 + 2 + 64) + 65 * 4 + 64 * 4 + 36 * 44 * 4
     c_flops = nblk * 2 * 64 * 8 * 2   # separable inverse DCT: 2 passes x 64 x 8 mul-adds
     c_bound = max(c_bytes / PEAK_BYTES_S, c_flops / PEAK_F32_FLOP_S) * 1e3
@@ -643,6 +713,8 @@ def main() -> int:
     pd_ms = event_ms(lambda: me_fused.sad_mc_best_plain(cur_d, pad_d), 3)
     kg_ms = event_ms(lambda: me_fused.sad_union_extra(cur_d, pad_d), 20)
     pg_ms = event_ms(lambda: me_fused.sad_union_extra_plain(cur_d, pad_d), 3)
+    dev_ms["D"] = device_profile(lambda: me_fused.sad_mc_best(cur_d, pad_d))["device_ms"]
+    dev_ms["G"] = device_profile(lambda: me_fused.sad_union_extra(cur_d, pad_d))["device_ms"]
     nmb = ng * (H // 16) * (W // 16)
     # each input byte read once, each output written once; one operation per
     # byte absolute difference accumulated (64 steps or 66 offsets x 256 px)
@@ -665,19 +737,29 @@ def main() -> int:
     res_c = to_blocks(curc_d.to(torch.int32) - predc_d.to(torch.int32))
     rng = np.random.default_rng(7200)
     f_cases = [("CIF luma", res_l[:8], False), ("CIF chroma", res_c[:16], True)]
+    # 720p and 1080p walk 3-5 sets of 32 block rows a lane (ROWS 4 and 8),
+    # 1080p luma keeps its DC terms in global scratch (32,400 cells do not
+    # fit in shared memory), and a 4096-line plane is the tallest the walk
+    # takes (ROWS 16)
     for name, (h7, w7), chroma in (("720p luma", (720, 1280), False),
-                                   ("720p chroma", (368, 640), True)):
+                                   ("720p chroma", (368, 640), True),
+                                   ("1080p luma", (1080, 1920), False),
+                                   ("1080p chroma", (544, 960), True),
+                                   ("4096-line luma", (4096, 32), False)):
         r7 = np.clip(rng.normal(0, 30, (2, h7, w7)), -255, 255).astype(np.int32)
         f_cases.append((name, to_blocks(torch.from_numpy(r7).to(dev)), chroma))
     keys_f = ("scan", "acflag", "r")
+    # float32 too is bit-identical: its double sums are exact (csrc/xform_fwd.cu,
+    # "Precision"); the 0.1% / 0.05 dB check below stays as the fast path's guard
     for name, blk, chroma in f_cases:
-        for qdc, qac in ((16, 16), (1, 1)):
-            k = xform_fused.xform_fwd_fused(blk, qdc, qac, chroma, dtype=torch.float64)
-            p = xform_fused.xform_fwd_plain(blk, qdc, qac, chroma, dtype=torch.float64)
-            check(all(torch.equal(k[n], p[n]) for n in keys_f),
-                  f"kernel F float64 {name} QP {qdc}/{qac}: differs from plain")
-        print(f"kernel F float64 {name} ({blk.shape[0]} planes), QP 16/16 and 1/1: bit-identical",
-              flush=True)
+        for dtype in (torch.float64, f32):
+            for qdc, qac in ((16, 16), (1, 1)):
+                k = xform_fused.xform_fwd_fused(blk, qdc, qac, chroma, dtype=dtype)
+                p = xform_fused.xform_fwd_plain(blk, qdc, qac, chroma, dtype=dtype)
+                check(all(torch.equal(k[n], p[n]) for n in keys_f),
+                      f"kernel F {dtype} {name} QP {qdc}/{qac}: differs from plain")
+        print(f"kernel F float64 and float32 {name} ({blk.shape[0]} planes), QP 16/16 and 1/1: "
+              "bit-identical", flush=True)
     kf = [xform_fused.xform_fwd_fused(res_l, 16, 16, False, dtype=f32),
           xform_fused.xform_fwd_fused(res_c, 16, 16, True, dtype=f32)]
     pf = [xform_fused.xform_fwd_plain(res_l, 16, 16, False, dtype=f32),
@@ -686,6 +768,23 @@ def main() -> int:
                    for a, b in zip(kf, pf) for n in ("scan", "r"))
     fdiff = sum(int((a["scan"] != b["scan"]).sum()) for a, b in zip(kf, pf))
     fsyms = sum(a["scan"].numel() for a in kf)
+    check(all(torch.equal(a[n], b[n]) for a, b in zip(kf, pf) for n in keys_f),
+          "kernel F float32 at the CIF300 P-step: differs from plain")
+    # a call of more blocks than one launch takes is split over its planes:
+    # force it at CIF (3 planes a launch, 10 launches a call)
+    cap, n0 = xform_fused.MAX_CELLS, xform_fused.launches
+    xform_fused.MAX_CELLS = 3 * res_l.shape[1] * res_l.shape[2]
+    try:
+        for dtype, plain in ((f32, pf[0]),
+                             (torch.float64, xform_fused.xform_fwd_plain(res_l, 16, 16, False))):
+            k = xform_fused.xform_fwd_fused(res_l, 16, 16, False, dtype=dtype)
+            check(all(torch.equal(k[n], plain[n]) for n in keys_f),
+                  f"kernel F {dtype}, split over planes: differs from plain")
+    finally:
+        xform_fused.MAX_CELLS = cap
+    check(xform_fused.launches - n0 == 20,
+          f"kernel F split over planes: {xform_fused.launches - n0} launches (20 expected)")
+    print("kernel F split over planes (10 launches a call): bit-identical", flush=True)
 
     def luma_recon(xf):
         return torch.clamp(pred_d.to(torch.int32) + from_blocks(xf["r"]), 0, 255).cpu().numpy()
@@ -706,16 +805,32 @@ def main() -> int:
                 xform_fused.xform_fwd_fused(res_c, 16, 16, True, dtype=f32))
 
     kf_ms = event_ms(f_kernel, 20)
+    kf_prof = device_profile(f_kernel)
+    dev_ms["F"] = kf_prof["device_ms"]
+    # two kernels a call (the parent's F had three); the profiler may drop
+    # a record, never add one
+    check(kf_prof["events"] <= 4 and len(kf_prof["by_name"]) == 4,
+          f"kernel F: {kf_prof['events']} device launches for two calls (two a call "
+          f"expected): {kf_prof['by_name']}")
+    print("kernel F float32 one P-step (luma and chroma calls), device ms by kernel: "
+          + json.dumps(kf_prof), flush=True)
     kf64_ms = event_ms(lambda: (xform_fused.xform_fwd_fused(res_l, 16, 16, False),
                                 xform_fused.xform_fwd_fused(res_c, 16, 16, True)), 10)
     pf_ms = event_ms(lambda: (xform_fused.xform_fwd_plain(res_l, 16, 16, False, dtype=f32),
                               xform_fused.xform_fwd_plain(res_c, 16, 16, True, dtype=f32)), 3)
     nb_l, nb_c = res_l[..., 0, 0].numel(), res_c[..., 0, 0].numel()
     # int32 blocks in; int16 symbols, int8 flags and r (int32 luma, float32
-    # chroma) out; the separable transforms: 4,096 flops a block
-    f_bytes = (nb_l + nb_c) * (64 * 4 + 64 * 2 + 1 + 64 * 4) + 2 * (65 * 4 + 64 * 4)
-    f_flops = (nb_l + nb_c) * 4096
-    f_bound = max(f_bytes / PEAK_BYTES_S, f_flops / PEAK_F32_FLOP_S) * 1e3
+    # chroma) out.  The float path's function is the two dense 64x64
+    # products in double (what keeps the encoder's references equal to the
+    # decoder's): 2 x 4,096 FP64 multiply-adds a block, at the FP64
+    # tensor-core peak that the kernel's DMMA can reach.  The float64 path's
+    # is the separable transforms, 4,096 flops a block, on the FP64 pipes.
+    f_bytes = (nb_l + nb_c) * (64 * 4 + 64 * 2 + 1 + 64 * 4) + 2 * (8192 * 4 + 64 * 4)
+    f_flops = (nb_l + nb_c) * 2 * 4096 * 2
+    f_bound = max(f_bytes / PEAK_BYTES_S, f_flops / PEAK_F64_TC_FLOP_S) * 1e3
+    f64_bytes = f_bytes + nb_c * 64 * 4 + 2 * (65 * 8 - 8192 * 4)
+    f64_flops = (nb_l + nb_c) * 4096
+    f64_bound = max(f64_bytes / PEAK_BYTES_S, f64_flops / PEAK_F64_FLOP_S) * 1e3
 
     # ---- 10. end to end: the period-10 encode -----------------------------
     cfg10 = CodecConfig(width=W, height=H, qp_dc=16, qp_ac=16, intra_period=period,
@@ -815,6 +930,8 @@ def main() -> int:
     launches_p10 = counts()
     check(all(launches_p10[n] >= 1 for n in ("C", "B'", "E")),
           f"the period-10 decode did not launch kernels C, B' and E: {launches_p10}")
+    check(launches_p10["E"] == period - 1,
+          f"the period-10 decode launched E {launches_p10['E']} times, not once a P-step")
     check(all(dec10[n].shape == dec[n].shape for n in dec),
           "period-10 decode output has the wrong shape")
     psnr_d10 = psnr(dec10["y"], y)
@@ -882,18 +999,34 @@ def main() -> int:
         psnr_y_intra_frames_db=psnr(dec10s["y"][::period], y[::period]))), flush=True)
     del isyms, psyms, dec10s
 
-    # kernel E at one P-step's shapes: luma and chroma, two launches
+    # mc_gather_yc against plain at every P-step of both period-10 streams:
+    # phase 10's (the planes decoded before each step, the step's MVs) and
+    # the seeded one's MVs (all 129 union offsets) over the intra planes
     pad_l = pad_image(first["y"], 16)
-    mv_l = mvr[:, 0].contiguous()
     pad_c = pad_image(torch.cat([first["cb"], first["cr"]]), 8)
-    mvc = torch.sign(mv_l) * torch.div(mv_l.abs(), 2, rounding_mode="floor")
+    for j in range(period - 1):
+        prev = [torch.from_numpy(dec10[n][j::period]).to(dev) for n in ("y", "cb", "cr")]
+        check_yc(pad_image(prev[0], 16), pad_image(torch.cat(prev[1:]), 8), mvr[:, j],
+                 f"phase 12's stream, P-step {j + 1}")
+        check_yc(pad_l, pad_c, torch.from_numpy(mv[j * ng:(j + 1) * ng]).to(dev),
+                 f"the seeded stream's MVs, P-step {j + 1}")
+    print("kernel E mc_gather_yc: bit-identical at the 9 P-steps of phase 10's stream and on the "
+          "seeded stream's MVs", flush=True)
+
+    # kernel E at one P-step's shapes: the decode's one launch, the
+    # two-launch form (mc_gather for luma and for chroma) and the library
+    mv_l = mvr[:, 0].contiguous()
+    mvc = mc_fused.chroma_mv(mv_l)
     mv_c = torch.cat([mvc, mvc]).contiguous()
 
     def mc_kernel():
+        return mc_fused.mc_gather_yc(pad_l, pad_c, mv_l)
+
+    def mc_two():
         return mc_fused.mc_gather(pad_l, mv_l, 16), mc_fused.mc_gather(pad_c, mv_c, 8)
 
     def mc_plain():
-        return mc_fused.mc_gather_plain(pad_l, mv_l, 16), mc_fused.mc_gather_plain(pad_c, mv_c, 8)
+        return mc_fused.mc_gather_yc_plain(pad_l, pad_c, mv_l)
 
     def gather_index(pad, mv, block):
         """(frame, row, column) index tensors of every predictor pixel."""
@@ -914,13 +1047,26 @@ def main() -> int:
     def mc_library():
         return pad_l[il], pad_c[ic]
 
-    check(all(torch.equal(a, b) for a, b in zip(mc_kernel(), mc_library())),
-          "kernel E differs from the advanced-indexing gather")
+    for fn in (mc_kernel, mc_two):
+        check(all(torch.equal(a, b) for a, b in zip(fn(), mc_library())),
+              f"kernel E ({fn.__name__}) differs from the advanced-indexing gather")
     ke_ms = event_ms(mc_kernel, 50)
+    ke2_ms = event_ms(mc_two, 50)
     pe_ms = event_ms(mc_plain, 5)
     le_ms = event_ms(mc_library, 20)
-    e_bytes = (pad_l.numel() + pad_c.numel() + (mv_l.numel() + mv_c.numel()) * 4
-               + first["y"].numel() + 2 * first["cb"].numel())
+    ke_prof = device_profile(mc_kernel)
+    check(ke_prof["events"] <= 1 and len(ke_prof["by_name"]) == 1,
+          f"mc_gather_yc made {ke_prof['events']} device launches: {ke_prof['by_name']}")
+    dev_ms["E"] = ke_prof["device_ms"]
+    e_times = dict(yc_ms=ke_ms, yc_device_ms=dev_ms["E"], two_launch_ms=ke2_ms,
+                   two_launch_device_ms=device_profile(mc_two)["device_ms"], library_ms=le_ms,
+                   library_device_ms=device_profile(mc_library)["device_ms"], plain_ms=pe_ms)
+    print("kernel E at one decode P-step (30 CIF frames, luma, Cb and Cr): " + json.dumps(e_times),
+          flush=True)
+    # each predictor byte is read once from its block's window and written
+    # once, beside the int32 MVs: the padding outside the windows need not
+    # be read
+    e_bytes = 2 * (first["y"].numel() + 2 * first["cb"].numel()) + mv_l.numel() * 4
     e_bound = e_bytes / PEAK_BYTES_S * 1e3
     del up, sym_i, sym_p, first, mvr, pad_l, pad_c, il, ic
 
@@ -1024,6 +1170,8 @@ def main() -> int:
     psb_ms = event_ms(lambda: me_fused.sad_best_plain(cur_d, pad_d), 3)
     ksu_ms = event_ms(lambda: me_fused.sad_union(cur_d, pad_d), 20)
     psu_ms = event_ms(lambda: me_fused.sad_union_plain(cur_d, pad_d), 3)
+    dev_ms["sad_best"] = device_profile(lambda: me_fused.sad_best(cur_d, pad_d))["device_ms"]
+    dev_ms["sad_union"] = device_profile(lambda: me_fused.sad_union(cur_d, pad_d))["device_ms"]
     search_ms = event_ms(unfused_search, 20)
     print("unfused search on a benchA P-step (30 CIF frames; MVs = spiral_search's, predictors "
           "= D's fused ones): " + json.dumps(dict(
@@ -1140,7 +1288,7 @@ def main() -> int:
         dict(name="intra_luma_wavefront", route="cuda",
              source="icspcodec_torch/csrc/intra_luma.cu",
              replaces="icspcodec_tpu/ops/pallas_intra.py:160", launches=launches_enc["A"],
-             max_abs_err=err["A"], ms=ka_ms, plain_ms=pa_ms,
+             max_abs_err=err["A"], ms=ka_ms, device_ms=dev_ms["A"], plain_ms=pa_ms,
              bound_ms=a_bound,
              bound_by="operations" if a_flops / PEAK_F32_FLOP_S > a_bytes / PEAK_BYTES_S
              else "bytes", library_ms=None,
@@ -1149,19 +1297,20 @@ def main() -> int:
              ms_float64=ka64_ms, path="encode"),
         dict(name="dc_dpcm_forward", route="cuda", source="icspcodec_torch/csrc/dc_dpcm.cu",
              replaces="icspcodec_tpu/ops/pallas_dc.py:66", launches=launches_enc["B"],
-             max_abs_err=err["B"], ms=kb_ms, plain_ms=pb_ms,
+             max_abs_err=err["B"], ms=kb_ms, device_ms=dev_ms["B"], plain_ms=pb_ms,
              bound_ms=b_bound, bound_by="bytes", library_ms=None,
              check="bit-identical in float32 and float64 at qstep 16 and 1", path="encode"),
         dict(name="dc_dpcm_inverse", route="cuda", source="icspcodec_torch/csrc/dc_dpcm.cu",
              replaces="icspcodec_tpu/ops/pallas_dc.py:66", launches=launches_ai["B'"],
-             max_abs_err=err["B'"], ms=kbi_ms, plain_ms=pbi_ms,
+             max_abs_err=err["B'"], ms=kbi_ms, device_ms=dev_ms["B'"], plain_ms=pbi_ms,
              bound_ms=bi_bound, bound_by="bytes", library_ms=None,
              check="bit-identical at the CIF chroma grid and luma kinds at QCIF and 720p",
              path="all-intra decode", launches_period10_decode=launches_p10["B'"]),
         dict(name="intra_luma_decode_wavefront", route="cuda",
              source="icspcodec_torch/csrc/intra_decode.cu",
              replaces="icspcodec_tpu/ops/pallas_intra.py:371", launches=launches_ai["C"],
-             max_abs_err=err["C"], ms=kc_ms, plain_ms=pc_ms, bound_ms=c_bound,
+             max_abs_err=err["C"], ms=kc_ms, device_ms=dev_ms["C"], plain_ms=pc_ms,
+             bound_ms=c_bound,
              bound_by="operations" if c_flops / PEAK_F32_FLOP_S > c_bytes / PEAK_BYTES_S
              else "bytes", library_ms=None,
              check="float64 bit-identical at CIF QP 16/16 and 1/1, QCIF, 720p; float32 "
@@ -1170,14 +1319,18 @@ def main() -> int:
              launches_period10_decode=launches_p10["C"]),
         dict(name="mc_gather", route="cuda", source="icspcodec_torch/csrc/mc_gather.cu",
              replaces="icspcodec_tpu/ops/pallas_me.py:387", launches=launches_p10["E"],
-             max_abs_err=err["E"], ms=ke_ms, plain_ms=pe_ms, bound_ms=e_bound,
-             bound_by="bytes", library_ms=le_ms,
-             check="bit-identical at CIF luma and chroma, union and out-of-frame MVs; "
-                   "times are one P-step's luma and chroma launches",
+             max_abs_err=err["E"], ms=ke_ms, device_ms=dev_ms["E"], plain_ms=pe_ms,
+             bound_ms=e_bound, bound_by="bytes", library_ms=le_ms,
+             library_device_ms=e_times["library_device_ms"],
+             check="bit-identical at CIF luma and chroma, union and out-of-frame MVs, both "
+                   "entry points, every P-step of two period-10 streams; times are one "
+                   "decode P-step's luma, Cb and Cr in one launch (mc_gather_yc)",
+             ms_two_launches=ke2_ms, device_ms_two_launches=e_times["two_launch_device_ms"],
              path="period-10 decode", launches_period10_encode=launches_enc10["E"]),
         dict(name="sad_mc_best", route="cuda", source="icspcodec_torch/csrc/sad_mc.cu",
              replaces="icspcodec_tpu/ops/pallas_me.py:207", launches=launches_enc10["D"],
-             max_abs_err=err["D"], ms=kd_ms, plain_ms=pd_ms, bound_ms=d_bound,
+             max_abs_err=err["D"], ms=kd_ms, device_ms=dev_ms["D"], plain_ms=pd_ms,
+             bound_ms=d_bound,
              bound_by="operations" if d_ops / PEAK_LANE_OP_S > d_bytes / PEAK_BYTES_S
              else "bytes", library_ms=None,
              check="bit-identical on benchA, synthStatic (CIF, 30 frames) and 720p; times "
@@ -1185,16 +1338,22 @@ def main() -> int:
              path="period-10 encode"),
         dict(name="xform_fwd", route="cuda", source="icspcodec_torch/csrc/xform_fwd.cu",
              replaces="icspcodec_tpu/ops/pallas_xform.py:63", launches=launches_enc10["F"],
-             max_abs_err=err["F"], ms=kf_ms, plain_ms=pf_ms, bound_ms=f_bound,
-             bound_by="operations" if f_flops / PEAK_F32_FLOP_S > f_bytes / PEAK_BYTES_S
+             max_abs_err=err["F"], ms=kf_ms, device_ms=dev_ms["F"], plain_ms=pf_ms,
+             bound_ms=f_bound,
+             bound_by="operations" if f_flops / PEAK_F64_TC_FLOP_S > f_bytes / PEAK_BYTES_S
              else "bytes", library_ms=None,
-             check="float64 bit-identical (CIF luma and chroma at QP 16/16 and 1/1, 720p); "
+             bound_rate="PEAK_F64_TC_FLOP_S (FP64 tensor cores, DMMA): the dense products",
+             check="float64 and float32 bit-identical (luma and chroma at CIF, 720p and "
+                   "1080p and a 4096-line plane, QP 16/16 and 1/1; the CIF300 P-step); "
                    f"float32 {fdiff} of {fsyms} symbols differ; times are one P-step's "
-                   "luma and chroma launches",
-             ms_float64=kf64_ms, path="period-10 encode"),
+                   "luma and chroma calls, two launches each",
+             ms_float64=kf64_ms, bound_ms_float64=f64_bound,
+             bound_by_float64="operations" if f64_flops / PEAK_F64_FLOP_S
+             > f64_bytes / PEAK_BYTES_S else "bytes", path="period-10 encode"),
         dict(name="sad_union_extra", route="cuda", source="icspcodec_torch/csrc/sad_mc.cu",
              replaces="icspcodec_tpu/ops/pallas_me.py:315", launches=launches_static["G"],
-             max_abs_err=err["G"], ms=kg_ms, plain_ms=pg_ms, bound_ms=g_bound,
+             max_abs_err=err["G"], ms=kg_ms, device_ms=dev_ms["G"], plain_ms=pg_ms,
+             bound_ms=g_bound,
              bound_by="operations" if g_ops / PEAK_LANE_OP_S > g_bytes / PEAK_BYTES_S
              else "bytes", library_ms=None,
              check="bit-identical on benchA, synthStatic (CIF, 30 frames) and 720p; times "
@@ -1203,7 +1362,8 @@ def main() -> int:
              launches_period10_encode=launches_enc10["G"]),
         dict(name="sad_best", route="cuda", source="icspcodec_torch/csrc/sad_mc.cu",
              replaces="icspcodec_tpu/ops/pallas_me.py:113", launches=launches_search["sad_best"],
-             max_abs_err=err["sad_best"], ms=ksb_ms, plain_ms=psb_ms, bound_ms=sb_bound,
+             max_abs_err=err["sad_best"], ms=ksb_ms, device_ms=dev_ms["sad_best"],
+             plain_ms=psb_ms, bound_ms=sb_bound,
              bound_by="operations" if sb_ops / PEAK_LANE_OP_S > sb_bytes / PEAK_BYTES_S
              else "bytes", library_ms=None,
              check="bit-identical on benchA, synthStatic (CIF, 30 frames) and 720p; best = D's "
@@ -1212,7 +1372,8 @@ def main() -> int:
              path="unfused search (sad_best, then luma and chroma MC through E)"),
         dict(name="sad_union", route="cuda", source="icspcodec_torch/csrc/sad_mc.cu",
              replaces="icspcodec_tpu/ops/pallas_me.py:366", launches=launches_search["sad_union"],
-             max_abs_err=err["sad_union"], ms=ksu_ms, plain_ms=psu_ms, bound_ms=su_bound,
+             max_abs_err=err["sad_union"], ms=ksu_ms, device_ms=dev_ms["sad_union"],
+             plain_ms=psu_ms, bound_ms=su_bound,
              bound_by="operations" if su_ops / PEAK_LANE_OP_S > su_bytes / PEAK_BYTES_S
              else "bytes", library_ms=None,
              check="bit-identical on benchA, synthStatic (CIF, 30 frames) and 720p; = D's "

@@ -19,7 +19,8 @@ The decoder's residual chain is batched tensor ops over all blocks of all
 frames, with the inverse DC chains through kernel B' (ops/dc_fused.py);
 motion compensation gathers each predictor block at its reconstructed MV
 through kernel E, as the JAX package's me="xla" decode does, so no MV is
-mapped back to an offset-table index.  The MV reconstruction is a plain
+mapped back to an offset-table index; one launch (mc_gather_yc) builds a
+step's luma and chroma predictors.  The MV reconstruction is a plain
 loop over the MB-grid diagonals, batched over every frame given.
 """
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 
 from ..constants import COS_DEC, COS_ENC, SPIRAL_UNION
 from ..ops.dc_fused import idc_dpcm_fused, kind_grid
-from ..ops.mc_fused import mc_gather, mc_select
+from ..ops.mc_fused import mc_gather_yc, mc_select
 from ..ops.me import device_table, mv_diff_field, stateful_select
 from ..ops.me_fused import sad_mc_best, sad_union_extra
 from ..ops.medians import median3, median3_mv_y
@@ -207,10 +208,10 @@ def decode_inter_frame(sym: dict, prev_y, prev_cb, prev_cr, qdc: int, qac: int,
     iq = dequant_block(q, qdc, qac)
     iq[..., 0, 0] = idc_dpcm_fused(iq[..., 0, 0], chroma=False)
     inv_f = from_blocks(c_trunc(idct(iq, table=table, dtype=dtype)))
-    predf = mc_gather(pad_image(prev_y, 16), mv, 16)
-    # chroma MV: mv/2 with C truncation (CmotionCompensation enc src:2538)
-    mvc = torch.sign(mv) * torch.div(mv.abs(), 2, rounding_mode="floor")
-    predcf = mc_gather(pad_image(torch.cat([prev_cb, prev_cr]), 8), torch.cat([mvc, mvc]), 8)
+    # luma and chroma predictors in one launch; the chroma MVs are mv/2 with
+    # C truncation (CmotionCompensation enc src:2538), derived in the kernel
+    predf, predcf = mc_gather_yc(pad_image(prev_y, 16),
+                                 pad_image(torch.cat([prev_cb, prev_cr]), 8), mv)
     # mergeBlock INTER casts the double IDCT to int before the add
     out = dict(y=torch.clamp(predf.to(torch.int32) + inv_f, 0, 255).to(torch.uint8))
     rc = from_blocks(decode_chroma_idct(sym["cb_scan"], sym["cr_scan"], qdc, qac,

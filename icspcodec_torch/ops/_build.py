@@ -10,6 +10,7 @@ Libraries go to build/icspcodec_torch/ at the root of the checkout
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -113,3 +114,13 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def on_device(device):
+    """torch.cuda.device(device) for a launch, or nothing when it is the
+    current device already."""
+    import torch
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
