@@ -15,25 +15,35 @@ JAX package's output.  Phases, each of which fails the run:
   1. build    nvcc builds every kernel and cc the parser, all at once
   2. kernels B and B' (DC chains) vs plain: forward at the CIF chroma grid,
               F=600, qstep 16 and 1, float32 and float64; inverse at the
-              same grid; both at luma kinds at QCIF and 720p; bit-identical
+              same grid; both at luma kinds at QCIF and 720p; bit-identical.
+              No codec path runs B (the encoder's chroma chain is kernel
+              F), so B's path is its entry point, ops/dc_fused.dc_dpcm_fused,
+              called once at the CIF300 chroma grid (launch counter)
   3. kernel A intra luma wavefront vs plain: float64 at CIF, 8 frames,
-              QP 16/16 and 1/1, bit-identical; float32 at CIF300, QP 16/16,
-              at most 0.1% of symbols differing, |dPSNR-Y| <= 0.05 dB in
-              every frame and bitstream size within 0.5%.  TF32 is on, as
-              a caller may have it: the fast transforms on the card must
-              still agree with the CPU's within 2e-5 of their largest
-              value (float32 reordering; TF32 would err by ~5e-4)
+              QP 16/16 and 1/1, float32 at CIF300, QP 16/16, and 8 frames
+              at QP 1/1, bit-identical (torch.equal); both precisions on
+              a plane of 2,560 block rows, whose ring of boundary state is
+              too tall for shared memory and goes to global scratch.  TF32
+              is on, as a caller may have it: the fast transforms on the
+              card must still agree with the CPU's within 2e-5 of their
+              largest value (float32 reordering; TF32 would err by ~5e-4).
+              The intra chroma chain (encode_chroma_batch, through kernel
+              F) equals F's plain version, the batched fdct, DC chain,
+              quantization and idct (symbols, flags and idct; torch.equal)
+              at CIF300 in both precisions
   4. encode   codec.encode of CIF300, all-intra, fast mode, through kernels
-              A and B (launch counters), timed with CUDA events after a
+              A and F (launch counters), timed with CUDA events after a
               warm-up
   5. kernel E motion compensation vs plain at CIF luma and chroma, MVs from
               the 129 union offsets and some leaving the padded frame:
               bit-identical, both entry points (mc_gather, and mc_gather_yc,
               the decoder's luma and chroma in one launch)
   6. kernel C intra luma decode vs plain: float64 at CIF (8 frames of the
-              phase-4 stream, QP 16/16 and 1/1), QCIF and 720p,
-              bit-identical; float32 on the CIF300 stream: at most 0.1% of
-              pixels differing, |dPSNR-Y| <= 0.05 dB in every frame
+              phase-4 stream, QP 16/16 and 1/1), QCIF and 720p, and on a
+              plane of 2,560 block rows (the ring in global scratch),
+              bit-identical; float32 on the
+              CIF300 stream: at most 0.1% of pixels differing, |dPSNR-Y| <=
+              0.05 dB in every frame
   7. decode   codec.decode of the phase-4 stream (all-intra CIF300, fast)
               through kernels C and B': PSNR-Y within 0.05 dB of the
               encoder's recon; timed, stage by stage
@@ -43,13 +53,16 @@ JAX package's output.  Phases, each of which fails the run:
               regions; bit-identical
   9. kernel F (forward residual chain) vs plain: float64 and float32 luma
               and chroma at CIF, 720p and 1080p, and a 4096-line plane, QP
-              16/16 and 1/1, bit-identical; float32 at the CIF300 P-step
+              16/16 and 1/1, bit-identical; at QP 16/16 an 8K UHD luma plane
+              (4,320 lines, walked in two bands of 512 block rows) and luma
+              and chroma planes of the header's largest height (65,520 and
+              32,760 lines, narrow), bit-identical; float32 at the CIF300 P-step
               shapes bit-identical, and at most 0.1% of symbols differing
               (the count printed) and |dPSNR-Y| <= 0.05 dB in every frame;
               a call split over planes bit-identical; two device launches
               a call
  10. encode   codec.encode of CIF300 at intra period 10, fast mode, through
-              kernels A, B, D, E and F (launch counters); timed, stage by
+              kernels A, D, E and F (launch counters); timed, stage by
               stage
  11. encode   codec.encode of 30 synthStatic CIF frames at period 10: the
               zero-SAD break fires, so kernel G runs (launch counter); its
@@ -68,7 +81,12 @@ JAX package's output.  Phases, each of which fails the run:
               of two small streams equal the pinned JAX ones; a CIF encode
               of 4 frames, an exact CIF synthStatic GOP (10 frames) and a
               CIF decode of one GOP (10 frames) give the same bytes and
-              planes on the card and the CPU
+              planes on the card and the CPU; three configurations of the
+              C++ reference's golden set (tests/golden/MANIFEST.sha256:
+              synthA QP 16/16 all-intra, synthB 8/8 and synthStatic 1/1 at
+              period 10; 32 CIF frames each) encoded and decoded on the
+              card in exact mode: the stream, encoder-recon and decoder
+              hashes equal the C++ reference's
  14. search   sad_best and sad_union (the unfused search entry points) vs
               plain on phase 8's benchA, synthStatic and 720p inputs,
               bit-identical; sad_best's best equals D's wherever zc < 2, its
@@ -90,7 +108,8 @@ JAX package's output.  Phases, each of which fails the run:
               printed PSNR-Y within 0.05 dB of phase 10's recon; wall times
 
 Prints a JSON `kernels` line (each kernel's event time `ms` and the
-profiler's device time `device_ms` per call of the same function), the
+profiler's device time `device_ms` per call of the same function; kernel A
+also its device time per diagonal), the
 card's name and power limit, and as its last line {"ok": true, "device":
 {...}}.  Exits non-zero, printing no result, without a CUDA device.
 """
@@ -115,8 +134,10 @@ PEAK_F32_FLOP_S = 67e12       # H100 SXM float32, outside the tensor cores
 PEAK_F64_FLOP_S = 33.5e12     # H100 SXM float64, outside the tensor cores
 PEAK_F64_TC_FLOP_S = 67e12    # H100 SXM float64 on the tensor cores (DMMA)
 # 32-bit lane operations per second outside the tensor cores: the float32
-# rate with a multiply-add counted once.  A byte absolute difference
-# accumulated into a sum (the SAD kernels' work) counts as one operation.
+# rate with a multiply-add counted once.  The SAD kernels' work, byte
+# absolute differences accumulated into sums, counts one operation per
+# instruction that does it: four differences where the compiled body does
+# them with VABSDIFF4 (sad_diffs_per_op), else one.
 PEAK_LANE_OP_S = PEAK_F32_FLOP_S / 2
 XCHECK_CFG = dict(width=96, height=64, qp_dc=8, qp_ac=16, precision="exact")
 XCHECK_SHA256 = "08ece079fe3b9aa18c9654c2066c7f422a57f3fdec12f4f1559c49e8e50b3413"
@@ -249,6 +270,16 @@ def cif_content(nframes: int, name: str = "benchA"):
     return y, cb, cr
 
 
+def yuv_sha256(planes: dict) -> str:
+    """sha256 of planes written frame by frame, Y then Cb then Cr: the
+    reference's .yuv layout."""
+    h = hashlib.sha256()
+    for f in range(planes["y"].shape[0]):
+        for k in ("y", "cb", "cr"):
+            h.update(np.ascontiguousarray(planes[k][f], np.uint8).tobytes())
+    return h.hexdigest()
+
+
 def psnr_frames(a, b) -> np.ndarray:
     mse = ((a.astype(np.float64) - b.astype(np.float64)) ** 2).mean(axis=(-2, -1))
     return 20 * np.log10(255.0 / np.sqrt(np.maximum(mse, 1e-12)))
@@ -261,6 +292,15 @@ def psnr(a, b) -> float:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def sad_diffs_per_op(lib: pathlib.Path, cuobjdump: pathlib.Path) -> int:
+    """Byte absolute differences one 32-bit lane instruction of the built
+    SAD kernels does: 4 when their SASS accumulates them with VABSDIFF4,
+    else 1."""
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    return 4 if "VABSDIFF4" in sass else 1
 
 
 def event_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -277,6 +317,19 @@ def event_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def nonzero_dequantized(scan, qdc: int, chroma: bool) -> int:
+    """The nonzero values that go into the inverse products of blocks whose
+    zig-zag symbols are scan (..., gh, gw, 64): the nonzero AC symbols, and
+    the dequantized DCs, which the inverse DC chain's plain version rebuilds
+    from the DC residuals, that are nonzero."""
+    import torch
+
+    from icspcodec_torch.ops.dc_fused import idc_dpcm_plain
+
+    dq = idc_dpcm_plain(scan[..., 0].to(torch.int32) * qdc, chroma)
+    return int(torch.count_nonzero(scan[..., 1:])) + int(torch.count_nonzero(dq))
 
 
 def max_abs(a, b) -> int:
@@ -434,6 +487,13 @@ def main() -> int:
     err["B'"] = max(err["B'"], e)
     check(e == 0, f"kernel B' at the CIF chroma grid: differs from plain by {e}")
     print(f"kernel B' at the CIF chroma grid: bit-identical ({iq_c.shape[0]} planes)", flush=True)
+    # B's path: its entry point, which no codec path calls since the
+    # encoder's chroma chain went through kernel F
+    reset_counts()
+    dc_fused.dc_dpcm_fused(dc32, 16, chroma=True)
+    torch.cuda.synchronize()
+    launches_b = counts()
+    check(launches_b["B"] == 1, f"the DC chain entry point did not launch kernel B: {launches_b}")
 
     # ---- 3. kernel A vs plain ---------------------------------------------
     # its plain version's fast transforms, card against CPU, with TF32 on
@@ -448,45 +508,55 @@ def main() -> int:
 
     keys = ("scan", "mpm", "mode_bit", "acflag", "recon_plane")
     o8 = to_blocks(yt[:8])
-    for qdc, qac in ((16, 16), (1, 1)):
-        k = intra_fused.intra_luma_scan_fused(o8, qdc, qac, dtype=torch.float64,
-                                              recon_plane=True)
-        p = intra_fused.intra_luma_scan_plain(o8, qdc, qac, dtype=torch.float64,
-                                              recon_plane=True)
-        e = max(max_abs(k[n], p[n]) for n in keys)
-        check(e == 0, f"kernel A float64 QP {qdc}/{qac}: differs from plain by {e}")
-        print(f"kernel A float64 QP {qdc}/{qac}: bit-identical (8 CIF frames)", flush=True)
+    # float32 too is bit-identical: its dense products' double sums are exact
+    # (csrc/intra_luma.cu, "Precision")
+    for dtype in (torch.float64, f32):
+        for qdc, qac in ((16, 16), (1, 1)):
+            k = intra_fused.intra_luma_scan_fused(o8, qdc, qac, dtype=dtype, recon_plane=True)
+            p = intra_fused.intra_luma_scan_plain(o8, qdc, qac, dtype=dtype, recon_plane=True)
+            e = max(max_abs(k[n], p[n]) for n in keys)
+            check(all(torch.equal(k[n], p[n]) for n in keys),
+                  f"kernel A {dtype} QP {qdc}/{qac}: differs from plain by {e}")
+            print(f"kernel A {str(dtype)[6:]} QP {qdc}/{qac}: bit-identical (8 CIF frames)",
+                  flush=True)
 
     oy = to_blocks(yt)
     k = intra_fused.intra_luma_scan_fused(oy, 16, 16, dtype=f32, recon_plane=True)
     p = intra_fused.intra_luma_scan_plain(oy, 16, 16, dtype=f32, recon_plane=True)
     err["A"] = max(max_abs(k[n], p[n]) for n in keys)
     ndiff = int((k["scan"] != p["scan"]).sum())
-    frames = int((k["scan"] != p["scan"]).flatten(1).any(1).sum())
-    dpf = (psnr_frames(k["recon_plane"].cpu().numpy(), y)
-           - psnr_frames(p["recon_plane"].cpu().numpy(), y))
-    dpsnr, dpsnr_max = float(dpf.mean()), float(np.abs(dpf).max())
-    chroma = encode_chroma_batch(ct, 16, 16, dtype=f32)
-
-    def stream_bits(lum):
-        syms = dict(y_scan=lum["scan"], y_acflag=lum["acflag"], mpm=lum["mpm"],
-                    mode_bit=lum["mode_bit"])
-        for i, name in enumerate(("cb", "cr")):
-            syms[f"{name}_scan"] = chroma["scan"][i * NF:(i + 1) * NF]
-            syms[f"{name}_acflag"] = chroma["acflag"][i * NF:(i + 1) * NF]
-        return int(frame_items_dev(syms, True)[1].sum(dtype=torch.int64))
-
-    bk, bp = stream_bits(k), stream_bits(p)
-    dsize = abs(bk - bp) / bp
-    a32 = dict(symbols_differing=ndiff, symbols=k["scan"].numel(), frames_affected=frames,
-               dpsnr_y_db=dpsnr, dpsnr_y_db_worst_frame=dpsnr_max, bits_kernel=bk,
-               bits_plain=bp, size_rel_diff=dsize)
+    a32 = dict(symbols_differing=ndiff, symbols=k["scan"].numel(), max_abs_err=err["A"])
     print("kernel A float32 CIF300 vs plain: " + json.dumps(a32), flush=True)
-    check(ndiff <= 0.001 * a32["symbols"],
-          f"kernel A float32: {ndiff} of {a32['symbols']} symbols differ (> 0.1%)")
-    check(dpsnr_max <= 0.05, f"kernel A float32: a frame's |dPSNR-Y| {dpsnr_max} > 0.05 dB")
-    check(dsize <= 0.005, f"kernel A float32: stream size differs by {dsize:.4%}")
-    del k, p, chroma
+    check(all(torch.equal(k[n], p[n]) for n in keys),
+          f"kernel A float32 CIF300: differs from plain ({a32})")
+    a_nonzero = nonzero_dequantized(k["scan"], 16, chroma=False)   # for A's bound
+    del k, p
+
+    # the ring of boundary state in global scratch: a plane too tall for the
+    # shared-memory ring (2,560 block rows x 96 bytes > 227 KB)
+    rng = np.random.default_rng(2560)
+    tall = to_blocks(torch.from_numpy(rng.integers(0, 256, (1, 2560 * 8, 32),
+                                                    dtype=np.uint8)).to(dev))
+    for dtype in (torch.float64, f32):
+        k = intra_fused.intra_luma_scan_fused(tall, 8, 16, dtype=dtype, recon_plane=True)
+        p = intra_fused.intra_luma_scan_plain(tall, 8, 16, dtype=dtype, recon_plane=True)
+        check(all(torch.equal(k[n], p[n]) for n in keys),
+              f"kernel A {dtype} on a 20,480x32 plane: differs from plain")
+    print("kernel A float64 and float32 on a 20,480x32 plane (the ring in global scratch): "
+          "bit-identical", flush=True)
+    del k, p
+
+    # the intra chroma chain through kernel F equals F's plain version: the
+    # batched fdct, DC chain, quantization and idct
+    for dtype in (torch.float64, f32):
+        via_f = encode_chroma_batch(ct, 16, 16, dtype=dtype)
+        plain = xform_fused.xform_fwd_plain(to_blocks(ct), 16, 16, True, dtype=dtype)
+        check(all(torch.equal(via_f[n], plain[m])
+                  for n, m in (("scan", "scan"), ("acflag", "acflag"), ("idct", "r"))),
+              f"intra chroma {dtype}: kernel F's route differs from the plain chain")
+    print(f"intra chroma chain of CIF300 ({ct.shape[0]} planes), float64 and float32: kernel F's "
+          "route equals the plain chain", flush=True)
+    del via_f, plain
 
     # other frame sizes (QCIF, 720p): float64 bit-identical, the kernels'
     # shared-memory sizing and diagonal bounds at other grids
@@ -512,8 +582,8 @@ def main() -> int:
     bits, rec = codec.encode(y, cb, cr, cfg)
     torch.cuda.synchronize()
     launches_enc = counts()
-    check(launches_enc["A"] >= 1 and launches_enc["B"] >= 1,
-          f"the encode did not launch kernels A and B: {launches_enc}")
+    check(launches_enc["A"] >= 1 and launches_enc["F"] >= 1,
+          f"the encode did not launch kernels A and F: {launches_enc}")
     check(rec["y"].shape == y.shape and len(bits) > 14, "encode output has the wrong shape")
     psnr_y = psnr(rec["y"], y)
     check(np.isfinite(psnr_y) and psnr_y > 30, f"encode PSNR-Y {psnr_y} dB is implausible")
@@ -550,6 +620,8 @@ def main() -> int:
         oy, 16, 16, dtype=f32, recon_plane=True), 1)
     kb_ms = event_ms(lambda: dc_fused.dc_dpcm_fused(dc32, 16, chroma=True), 50)
     pb_ms = event_ms(lambda: dc_fused.dc_dpcm_plain(dc32, 16, chroma=True), 3)
+    a64_dev_ms = device_profile(lambda: intra_fused.intra_luma_scan_fused(
+        oy, 16, 16, dtype=torch.float64, recon_plane=True), 5)["device_ms"]
     dev_ms = {"A": device_profile(lambda: intra_fused.intra_luma_scan_fused(
         oy, 16, 16, dtype=f32, recon_plane=True), 5)["device_ms"],
               "B": device_profile(lambda: dc_fused.dc_dpcm_fused(dc32, 16, chroma=True))[
@@ -557,10 +629,18 @@ def main() -> int:
 
     nblk = oy.shape[0] * oy.shape[1] * oy.shape[2]
     a_bytes = nblk * (64 + 128 + 3 + 64) + 2 * 64 * 64 * 4 + 64 * 4 + 36 * 44 * 4
-    # the two transforms in their separable form: 2 passes x 64 outputs x 8
-    # multiply-adds each (the kernel's float path spends 4x that, densely)
-    a_flops = nblk * 2 * 2 * 64 * 8 * 2
-    a_bound = max(a_bytes / PEAK_BYTES_S, a_flops / PEAK_F32_FLOP_S) * 1e3
+    # The float path's function is the two 64x64 products in double (what
+    # keeps the encoder's rounding the decoder's), at the FP64 tensor-core
+    # peak the kernel's mma can reach: the forward product dense, 4,096
+    # multiply-adds a block, and the inverse 64 for each nonzero dequantized
+    # value of this run (the kernel skips the k-steps whose blocks hold only
+    # zeros).  The float64 path's is the separable transforms, 2 passes x 64
+    # outputs x 8 multiply-adds each, on the FP64 pipes.
+    a_flops = (nblk * 4096 + 64 * a_nonzero) * 2
+    a_bound = max(a_bytes / PEAK_BYTES_S, a_flops / PEAK_F64_TC_FLOP_S) * 1e3
+    a64_flops = nblk * 2 * 2 * 64 * 8 * 2
+    a64_bound = max(a_bytes / PEAK_BYTES_S, a64_flops / PEAK_F64_FLOP_S) * 1e3
+    a_diagonals = 2 * (oy.shape[1] - 1) + oy.shape[2]
     ncell = dc32.numel()
     b_bytes = ncell * (4 + 4 + 4) + 18 * 22 * 4
     b_bound = b_bytes / PEAK_BYTES_S * 1e3
@@ -618,6 +698,19 @@ def main() -> int:
                     intra_decode_fused.intra_luma_decode_plain(*args, dtype=torch.float64))
         check(e == 0, f"kernel C float64 at {w}x{h}: differs from plain by {e}")
         print(f"kernel C float64 at {w}x{h}: bit-identical", flush=True)
+    # the ring in global scratch: a plane of 2,560 block rows, too tall for
+    # the shared-memory ring
+    gh, gw = 2560, 4
+    sc = np.where(rng.random((1, gh, gw, 64)) < 0.15, rng.integers(-30, 31, (1, gh, gw, 64)), 0)
+    sc[..., 0] = rng.integers(-6, 7, (1, gh, gw))
+    fl = rng.integers(0, 2, (2, 1, gh, gw)).astype(np.int8)
+    args = (torch.from_numpy(sc.astype(np.int16)).to(dev), torch.from_numpy(fl[0]).to(dev),
+            torch.from_numpy(fl[1]).to(dev), 8, 16)
+    k = intra_decode_fused.intra_luma_decode_fused(*args, dtype=torch.float64)
+    check(torch.equal(k, intra_decode_fused.intra_luma_decode_plain(*args, dtype=torch.float64)),
+          "kernel C float64 on a 20,480x32 plane: differs from plain")
+    print("kernel C float64 on a 20,480x32 plane (the ring in global scratch): bit-identical",
+          flush=True)
     kc = intra_decode_fused.intra_luma_decode_fused(ys, mpm, mbit, 16, 16, dtype=f32)
     pc = intra_decode_fused.intra_luma_decode_plain(ys, mpm, mbit, 16, 16, dtype=f32)
     err["C"] = max_abs(kc, pc)
@@ -716,13 +809,16 @@ def main() -> int:
     dev_ms["D"] = device_profile(lambda: me_fused.sad_mc_best(cur_d, pad_d))["device_ms"]
     dev_ms["G"] = device_profile(lambda: me_fused.sad_union_extra(cur_d, pad_d))["device_ms"]
     nmb = ng * (H // 16) * (W // 16)
-    # each input byte read once, each output written once; one operation per
-    # byte absolute difference accumulated (64 steps or 66 offsets x 256 px)
+    # each input byte read once, each output written once; the byte absolute
+    # differences accumulated (64 steps or 66 offsets x 256 px), diffs_op to
+    # an operation
+    diffs_op = sad_diffs_per_op(_build._target("sad_mc"),
+                                pathlib.Path(_build.nvcc()).parent / "cuobjdump")
     d_bytes = 2 * cur_d.numel() + pad_d.numel() + nmb * (63 + 2) * 4 + 64 * 3 * 4
-    d_ops = nmb * 64 * 256
+    d_ops = nmb * 64 * 256 // diffs_op
     d_bound = max(d_bytes / PEAK_BYTES_S, d_ops / PEAK_LANE_OP_S) * 1e3
     g_bytes = cur_d.numel() + pad_d.numel() + nmb * 66 * 4 + 66 * 2 * 4
-    g_ops = nmb * 66 * 256
+    g_ops = nmb * 66 * 256 // diffs_op
     g_bound = max(g_bytes / PEAK_BYTES_S, g_ops / PEAK_LANE_OP_S) * 1e3
 
     # ---- 9. kernel F vs plain ---------------------------------------------
@@ -749,6 +845,21 @@ def main() -> int:
         r7 = np.clip(rng.normal(0, 30, (2, h7, w7)), -255, 255).astype(np.int32)
         f_cases.append((name, to_blocks(torch.from_numpy(r7).to(dev)), chroma))
     keys_f = ("scan", "acflag", "r")
+    # planes taller than one band of the DC walk (512 block rows): an 8K UHD
+    # luma plane, and luma and chroma planes of the header's largest height
+    for name, (h7, w7), chroma in (("8K UHD luma", (4320, 7680), False),
+                                   ("65,520-line luma", (65520, 32), False),
+                                   ("32,760-line chroma", (32760, 16), True)):
+        blk = to_blocks(torch.from_numpy(np.clip(rng.normal(0, 30, (1, h7, w7)), -255, 255)
+                                         .astype(np.int32)).to(dev))
+        for dtype in (torch.float64, f32):
+            k = xform_fused.xform_fwd_fused(blk, 16, 16, chroma, dtype=dtype)
+            p = xform_fused.xform_fwd_plain(blk, 16, 16, chroma, dtype=dtype)
+            check(all(torch.equal(k[n], p[n]) for n in keys_f),
+                  f"kernel F {dtype} {name} plane: differs from plain")
+        print(f"kernel F float64 and float32 on a {name} plane ({w7}x{h7}), QP 16/16: "
+              "bit-identical", flush=True)
+        del blk, k, p
     # float32 too is bit-identical: its double sums are exact (csrc/xform_fwd.cu,
     # "Precision"); the 0.1% / 0.05 dB check below stays as the fast path's guard
     for name, blk, chroma in f_cases:
@@ -798,6 +909,8 @@ def main() -> int:
     check(fdiff <= 0.001 * fsyms, f"kernel F float32: {fdiff} of {fsyms} symbols differ (> 0.1%)")
     check(f_check["dpsnr_y_db_worst_frame"] <= 0.05,
           f"kernel F float32: a frame's |dPSNR-Y| {f_check['dpsnr_y_db_worst_frame']} > 0.05 dB")
+    f_nonzero = (nonzero_dequantized(kf[0]["scan"], 16, chroma=False)
+                 + nonzero_dequantized(kf[1]["scan"], 16, chroma=True))   # for F's bound
     del kf, pf, f_cases
 
     def f_kernel():
@@ -820,13 +933,14 @@ def main() -> int:
                               xform_fused.xform_fwd_plain(res_c, 16, 16, True, dtype=f32)), 3)
     nb_l, nb_c = res_l[..., 0, 0].numel(), res_c[..., 0, 0].numel()
     # int32 blocks in; int16 symbols, int8 flags and r (int32 luma, float32
-    # chroma) out.  The float path's function is the two dense 64x64
-    # products in double (what keeps the encoder's references equal to the
-    # decoder's): 2 x 4,096 FP64 multiply-adds a block, at the FP64
-    # tensor-core peak that the kernel's DMMA can reach.  The float64 path's
-    # is the separable transforms, 4,096 flops a block, on the FP64 pipes.
+    # chroma) out.  The float path's function is the two 64x64 products in
+    # double (what keeps the encoder's references equal to the decoder's),
+    # at the FP64 tensor-core peak that the kernel's DMMA can reach: the
+    # forward dense, 4,096 multiply-adds a block, and the inverse 64 for each
+    # nonzero dequantized value of this run.  The float64 path's is the
+    # separable transforms, 4,096 flops a block, on the FP64 pipes.
     f_bytes = (nb_l + nb_c) * (64 * 4 + 64 * 2 + 1 + 64 * 4) + 2 * (8192 * 4 + 64 * 4)
-    f_flops = (nb_l + nb_c) * 2 * 4096 * 2
+    f_flops = ((nb_l + nb_c) * 4096 + 64 * f_nonzero) * 2
     f_bound = max(f_bytes / PEAK_BYTES_S, f_flops / PEAK_F64_TC_FLOP_S) * 1e3
     f64_bytes = f_bytes + nb_c * 64 * 4 + 2 * (65 * 8 - 8192 * 4)
     f64_flops = (nb_l + nb_c) * 4096
@@ -839,8 +953,8 @@ def main() -> int:
     bits10, rec10 = codec.encode(y, cb, cr, cfg10)
     torch.cuda.synchronize()
     launches_enc10 = counts()
-    check(all(launches_enc10[n] >= 1 for n in ("A", "B", "D", "E", "F")),
-          f"the period-10 encode did not launch kernels A, B, D, E and F: {launches_enc10}")
+    check(all(launches_enc10[n] >= 1 for n in ("A", "D", "E", "F")),
+          f"the period-10 encode did not launch kernels A, D, E and F: {launches_enc10}")
     check(rec10["y"].shape == y.shape and len(bits10) > 14,
           "period-10 encode output has the wrong shape")
     psnr10 = psnr(rec10["y"], y)
@@ -910,8 +1024,8 @@ def main() -> int:
     bits_s, rec_s = codec.encode(sy, scb, scr, cfg10)
     torch.cuda.synchronize()
     launches_static = counts()
-    check(all(launches_static[n] >= 1 for n in ("A", "B", "D", "E", "F", "G")),
-          f"the synthStatic encode did not launch kernels A, B, D, E, F and G: {launches_static}")
+    check(all(launches_static[n] >= 1 for n in ("A", "D", "E", "F", "G")),
+          f"the synthStatic encode did not launch kernels A, D, E, F and G: {launches_static}")
     psnr_s = psnr(rec_s["y"], sy)
     dec_s = codec.decode(bits_s, ng, precision="fast")
     psnr_sd = psnr(dec_s["y"], sy)
@@ -1121,6 +1235,31 @@ def main() -> int:
     print(f"xcheck: exact-mode CIF decode of one GOP ({period} frames) identical on the card "
           "and the CPU", flush=True)
 
+    # the C++ reference's own hashes (tests/golden/MANIFEST.sha256), on the
+    # card in exact mode: a few of the configurations that
+    # tests/test_torch_golden_hashes.py checks on the CPU
+    manifest = dict(reversed(line.split()) for line in
+                    (REPO / "tests" / "golden" / "MANIFEST.sha256").read_text().splitlines())
+    for seq, qdc, qac, gp in (("synthA", 16, 16, 1), ("synthB", 8, 8, 10),
+                              ("synthStatic", 1, 1, 10)):
+        gy, gcb, gcr = cif_content(32, seq)
+        reset_counts()
+        gb, grec = codec.encode(gy, gcb, gcr, CodecConfig(width=W, height=H, qp_dc=qdc, qp_ac=qac,
+                                                          intra_period=gp, precision="exact"))
+        launches_g = counts()
+        gdec = codec.decode(gb, 32, precision="exact")
+        stem = f"{seq}_{qdc}_{qac}_{gp}"
+        check(hashlib.sha256(gb).hexdigest() == manifest[f"{seq}_compCIF_{qdc}_{qac}_{gp}.bin"],
+              f"golden {stem}: the card's stream differs from the C++ reference's")
+        check(yuv_sha256(grec) == manifest[f"{stem}.encrecon.yuv"],
+              f"golden {stem}: the card's encoder recon differs from the C++ reference's")
+        check(yuv_sha256(gdec) == manifest[f"{stem}.decrecon.yuv"],
+              f"golden {stem}: the card's decode differs from the C++ reference's")
+        check(launches_g["A"] >= 1 and launches_g["F"] >= 1,
+              f"golden {stem}: the encode did not launch kernels A and F: {launches_g}")
+        print(f"xcheck: golden {stem} (32 CIF frames, exact, on the card): stream, encoder "
+              "recon and decode equal the C++ reference's hashes", flush=True)
+
     # ---- 14. the unfused search entry points: sad_best and sad_union -------
     for name, cur, pad in me_cases:
         kb, pb = me_fused.sad_best(cur, pad), me_fused.sad_best_plain(cur, pad)
@@ -1177,13 +1316,14 @@ def main() -> int:
           "= D's fused ones): " + json.dumps(dict(
               sad_best_ms=ksb_ms, sad_union_ms=ksu_ms, unfused_search_ms=search_ms,
               fused_search_D_ms=kd_ms, launches=launches_search)), flush=True)
-    # each input byte read once, each output written once; one operation per
-    # byte absolute difference accumulated (64 steps or 129 offsets x 256 px)
+    # each input byte read once, each output written once; the byte absolute
+    # differences accumulated (64 steps or 129 offsets x 256 px), diffs_op to
+    # an operation
     sb_bytes = cur_d.numel() + pad_d.numel() + nmb * 2 * 4 + 64 * 2 * 4
-    sb_ops = nmb * 64 * 256
+    sb_ops = nmb * 64 * 256 // diffs_op
     sb_bound = max(sb_bytes / PEAK_BYTES_S, sb_ops / PEAK_LANE_OP_S) * 1e3
     su_bytes = cur_d.numel() + pad_d.numel() + nmb * len(NEG_UNION) * 4 + len(NEG_UNION) * 2 * 4
-    su_ops = nmb * len(NEG_UNION) * 256
+    su_ops = nmb * len(NEG_UNION) * 256 // diffs_op
     su_bound = max(su_bytes / PEAK_BYTES_S, su_ops / PEAK_LANE_OP_S) * 1e3
     del best_s, pred_s, predc_s, union_s
 
@@ -1290,16 +1430,24 @@ def main() -> int:
              replaces="icspcodec_tpu/ops/pallas_intra.py:160", launches=launches_enc["A"],
              max_abs_err=err["A"], ms=ka_ms, device_ms=dev_ms["A"], plain_ms=pa_ms,
              bound_ms=a_bound,
-             bound_by="operations" if a_flops / PEAK_F32_FLOP_S > a_bytes / PEAK_BYTES_S
+             bound_by="operations" if a_flops / PEAK_F64_TC_FLOP_S > a_bytes / PEAK_BYTES_S
              else "bytes", library_ms=None,
-             check="float64 bit-identical at QP 16/16 and 1/1; float32 "
-                   f"{ndiff} of {a32['symbols']} symbols differ, dPSNR-Y {dpsnr:.5f} dB",
-             ms_float64=ka64_ms, path="encode"),
+             bound_rate="PEAK_F64_TC_FLOP_S (FP64 tensor cores): the forward product dense, "
+                        "the inverse over the nonzero dequantized values",
+             nonzero_dequantized=a_nonzero, device_us_per_diagonal=dev_ms["A"] / a_diagonals * 1e3, diagonals=a_diagonals,
+             check="float64 and float32 bit-identical at QP 16/16 and 1/1 (float32 at CIF300: "
+                   f"{ndiff} of {a32['symbols']} symbols differ), and on a 20,480x32 plane "
+                   "(the ring in global scratch)",
+             ms_float64=ka64_ms, device_ms_float64=a64_dev_ms, bound_ms_float64=a64_bound,
+             path="encode"),
         dict(name="dc_dpcm_forward", route="cuda", source="icspcodec_torch/csrc/dc_dpcm.cu",
-             replaces="icspcodec_tpu/ops/pallas_dc.py:66", launches=launches_enc["B"],
+             replaces="icspcodec_tpu/ops/pallas_dc.py:66", launches=launches_b["B"],
              max_abs_err=err["B"], ms=kb_ms, device_ms=dev_ms["B"], plain_ms=pb_ms,
              bound_ms=b_bound, bound_by="bytes", library_ms=None,
-             check="bit-identical in float32 and float64 at qstep 16 and 1", path="encode"),
+             check="bit-identical in float32 and float64 at qstep 16 and 1",
+             path="its entry point, ops/dc_fused.dc_dpcm_fused, at the CIF300 chroma grid; "
+                  "no codec path calls it (the encoder's chroma chain is kernel F)",
+             launches_encode=launches_enc["B"]),
         dict(name="dc_dpcm_inverse", route="cuda", source="icspcodec_torch/csrc/dc_dpcm.cu",
              replaces="icspcodec_tpu/ops/pallas_dc.py:66", launches=launches_ai["B'"],
              max_abs_err=err["B'"], ms=kbi_ms, device_ms=dev_ms["B'"], plain_ms=pbi_ms,
@@ -1335,21 +1483,24 @@ def main() -> int:
              else "bytes", library_ms=None,
              check="bit-identical on benchA, synthStatic (CIF, 30 frames) and 720p; times "
                    "are one P-step (30 CIF frames)",
-             path="period-10 encode"),
+             byte_differences_per_operation=diffs_op, path="period-10 encode"),
         dict(name="xform_fwd", route="cuda", source="icspcodec_torch/csrc/xform_fwd.cu",
              replaces="icspcodec_tpu/ops/pallas_xform.py:63", launches=launches_enc10["F"],
              max_abs_err=err["F"], ms=kf_ms, device_ms=dev_ms["F"], plain_ms=pf_ms,
              bound_ms=f_bound,
              bound_by="operations" if f_flops / PEAK_F64_TC_FLOP_S > f_bytes / PEAK_BYTES_S
              else "bytes", library_ms=None,
-             bound_rate="PEAK_F64_TC_FLOP_S (FP64 tensor cores, DMMA): the dense products",
+             bound_rate="PEAK_F64_TC_FLOP_S (FP64 tensor cores, DMMA): the forward product "
+                        "dense, the inverse over the nonzero dequantized values",
+             nonzero_dequantized=f_nonzero,
              check="float64 and float32 bit-identical (luma and chroma at CIF, 720p and "
                    "1080p and a 4096-line plane, QP 16/16 and 1/1; the CIF300 P-step); "
                    f"float32 {fdiff} of {fsyms} symbols differ; times are one P-step's "
                    "luma and chroma calls, two launches each",
              ms_float64=kf64_ms, bound_ms_float64=f64_bound,
              bound_by_float64="operations" if f64_flops / PEAK_F64_FLOP_S
-             > f64_bytes / PEAK_BYTES_S else "bytes", path="period-10 encode"),
+             > f64_bytes / PEAK_BYTES_S else "bytes", path="period-10 encode",
+             launches_all_intra_encode=launches_enc["F"]),
         dict(name="sad_union_extra", route="cuda", source="icspcodec_torch/csrc/sad_mc.cu",
              replaces="icspcodec_tpu/ops/pallas_me.py:315", launches=launches_static["G"],
              max_abs_err=err["G"], ms=kg_ms, device_ms=dev_ms["G"], plain_ms=pg_ms,

@@ -1,10 +1,10 @@
 """Top-level encode and decode API of the PyTorch port.
 
 encode() runs the codec at any intra period on one device.  All-intra:
-the intra engine (engine/intra.py, with CUDA kernels A and B on the card).
+the intra engine (engine/intra.py, with CUDA kernels A and F on the card).
 With P-frames: closed GOPs batched as the JAX package batches them, the
 full GOPs as one (G, P) batch and a shorter last GOP as another, through
-engine/inter.encode_gop (kernels A and B for the GOPs' first frames, then
+engine/inter.encode_gop (kernels A and F for the GOPs' first frames, then
 per P-frame position kernels D, E, F and, where the reference's walk breaks
 early, G).  Then device-side entropy items and bit packing
 (bitstream_device.py), and the host splice plus the 14-byte header.  Only

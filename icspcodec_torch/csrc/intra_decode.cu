@@ -34,8 +34,11 @@
 // a ring of 4 slots per block row in shared memory (slot gx & 3): within a
 // diagonal a block writes slot gx & 3 of its row while the blocks of the row
 // below read slots gx-1 .. gx+1 of it, so no two touch the same slot.  The
-// TPU kernel's lane shear, rolls, 0/1 extraction and split permutation
-// matmuls are not needed here.
+// ring takes 96 bytes a block row; when it does not fit beside the tables
+// in the opt-in shared memory (above ~2,300 block rows), it lives in a
+// global scratch ring of the same layout, one per frame, and the kernel
+// takes every height the header carries.  The TPU kernel's lane shear,
+// rolls, 0/1 extraction and split permutation matmuls are not needed here.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,6 +60,7 @@ template <> struct Rn<double> {
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_WARPS = 24;
+constexpr int RING_ROW_BYTES = 96;   // a block row's ring: 4 modes, 4 DCs, 4 x 8 + 4 x 8 pixels
 
 __device__ __forceinline__ int median3(int a, int b, int c) {
   const int m1 = max(b, c), m2 = max(a, c), m3 = max(a, b);
@@ -71,13 +75,15 @@ __device__ __forceinline__ int dc_pred(int kind, int l, int ul, int u, int ur) {
   return median3(l, u, ur);
 }
 
-// tabs: the 8x8 cosine table ct[u * 8 + x], then IRT2, in T.
-template <typename T>
+// tabs: the 8x8 cosine table ct[u * 8 + x], then IRT2, in T.  GRING: the ring
+// lives in the global scratch ring_g (else in shared memory, where the
+// compiler knows it so).
+template <typename T, bool GRING>
 __global__ void __launch_bounds__(MAX_WARPS * 32) intra_decode_kernel(
     const int16_t* __restrict__ scan, const int8_t* __restrict__ mpm,
     const int8_t* __restrict__ mbit, const int* __restrict__ kind,
     const T* __restrict__ tabs, const int* __restrict__ izz, int gh, int gw, int qdc, int qac,
-    uint8_t* __restrict__ recon) {
+    uint8_t* __restrict__ recon, unsigned char* __restrict__ ring_g) {
   using R = Rn<T>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int f = blockIdx.x;
@@ -87,7 +93,10 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) intra_decode_kernel(
   T* ebuf = ct + 72 + warp * 128;                // per warp: 64 coefficients ...
   T* tbuf = ebuf + 64;                           // ... and 64 for the second pass
   int* izz_s = reinterpret_cast<int*>(ct + 72 + nwarps * 128);
-  int* md_ring = izz_s + 64;                     // (gh, 4) modes
+  // the ring: in shared memory after the zig-zag order, or this frame's
+  // part of the global scratch ring
+  int* md_ring = GRING ? reinterpret_cast<int*>(ring_g + (long long)f * gh * RING_ROW_BYTES)
+                       : izz_s + 64;             // (gh, 4) modes
   int* dq_ring = md_ring + gh * 4;               // (gh, 4) dequantized DCs
   uint8_t* rc_ring = reinterpret_cast<uint8_t*>(dq_ring + gh * 4);  // (gh, 4, 8)
   uint8_t* br_ring = rc_ring + gh * 32;                             // (gh, 4, 8)
@@ -199,19 +208,39 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) intra_decode_kernel(
   }
 }
 
+template <typename T, bool GRING>
+int launch_ring(const int16_t* scan, const int8_t* mpm, const int8_t* mbit, const int* kind,
+                const void* tabs, const int* izz, int nframes, int gh, int gw, int qdc, int qac,
+                uint8_t* recon, unsigned char* ring_g, int nwarps, size_t smem,
+                cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      intra_decode_kernel<T, GRING>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  intra_decode_kernel<T, GRING><<<nframes, nwarps * 32, smem, stream>>>(
+      scan, mpm, mbit, kind, static_cast<const T*>(tabs), izz, gh, gw, qdc, qac, recon, ring_g);
+  return (int)cudaGetLastError();
+}
+
+// The ring goes to shared memory when it fits beside the rest within the
+// device's opt-in, else to the global scratch ring_g.
 template <typename T>
 int launch(const int16_t* scan, const int8_t* mpm, const int8_t* mbit, const int* kind,
            const void* tabs, const int* izz, int nframes, int gh, int gw, int qdc, int qac,
-           uint8_t* recon, cudaStream_t stream) {
+           uint8_t* recon, unsigned char* ring_g, cudaStream_t stream) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
   const int nmax = min(gh, (gw + 1) / 2);      // longest diagonal
   const int nwarps = max(1, min(MAX_WARPS, nmax));
-  const size_t smem = sizeof(T) * (72 + nwarps * 128) + sizeof(int) * (64 + gh * 8) + gh * 64;
-  cudaError_t err = cudaFuncSetAttribute(
-      intra_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  intra_decode_kernel<T><<<nframes, nwarps * 32, smem, stream>>>(
-      scan, mpm, mbit, kind, static_cast<const T*>(tabs), izz, gh, gw, qdc, qac, recon);
-  return (int)cudaGetLastError();
+  const size_t fixed = sizeof(T) * (72 + nwarps * 128) + sizeof(int) * 64;
+  const size_t ring = (size_t)gh * RING_ROW_BYTES;
+  return fixed + ring <= (size_t)optin
+             ? launch_ring<T, false>(scan, mpm, mbit, kind, tabs, izz, nframes, gh, gw, qdc, qac,
+                                     recon, ring_g, nwarps, fixed + ring, stream)
+             : launch_ring<T, true>(scan, mpm, mbit, kind, tabs, izz, nframes, gh, gw, qdc, qac,
+                                    recon, ring_g, nwarps, fixed, stream);
 }
 
 }  // namespace
@@ -220,17 +249,23 @@ int launch(const int16_t* scan, const int8_t* mpm, const int8_t* mbit, const int
 // is (F, gh, gw, 64) i16 in zig-zag order, mpm / mbit (F, gh, gw) i8, kind
 // (gh, gw) i32, tabs the cosine table and IRT2 (65 floats or doubles), izz
 // the 64 scan positions of the block-order coefficients, recon (F, gh*8,
-// gw*8) u8; all contiguous.  Returns cudaGetLastError() after the launch.
+// gw*8) u8; all contiguous.  ring: ring_bytes of global scratch, at least
+// nframes * gh * RING_ROW_BYTES, that holds the ring when it does not fit
+// in shared memory.  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for too small a ring).
 extern "C" int icsp_intra_decode(const void* scan, const void* mpm, const void* mbit,
                                  int is_f64, const int* kind, const void* tabs,
                                  const int* izz, int nframes, int gh, int gw, int qdc,
-                                 int qac, void* recon, void* stream) {
+                                 int qac, void* recon, void* ring, long long ring_bytes,
+                                 void* stream) {
+  if (ring_bytes < (long long)nframes * gh * RING_ROW_BYTES) return (int)cudaErrorInvalidValue;
   auto* sc = static_cast<const int16_t*>(scan);
   auto* mp = static_cast<const int8_t*>(mpm);
   auto* mb = static_cast<const int8_t*>(mbit);
   auto* rc = static_cast<uint8_t*>(recon);
   auto st = static_cast<cudaStream_t>(stream);
+  auto* rg = static_cast<unsigned char*>(ring);
   if (is_f64)
-    return launch<double>(sc, mp, mb, kind, tabs, izz, nframes, gh, gw, qdc, qac, rc, st);
-  return launch<float>(sc, mp, mb, kind, tabs, izz, nframes, gh, gw, qdc, qac, rc, st);
+    return launch<double>(sc, mp, mb, kind, tabs, izz, nframes, gh, gw, qdc, qac, rc, rg, st);
+  return launch<float>(sc, mp, mb, kind, tabs, izz, nframes, gh, gw, qdc, qac, rc, rg, st);
 }

@@ -26,21 +26,31 @@
 // Bound on this card.  D, one P-step of 30 CIF frames: it reads 3.0 MB of
 // current frames and 3.7 MB of padded previous frames and writes 3.0 MB of
 // SAD rows, 3.0 MB of predictors and 0.1 MB of keys: ~12.8 MB, 3.8 us at
-// 3.35 TB/s.  Its work is 195 M byte absolute differences, accumulated:
-// at one 32-bit lane operation each (33.5e12 a second, chip_smoke.py's
-// PEAK_LANE_OP_S) that is 5.8 us, so operations bound it.  G does the same
-// for 66 offsets with no predictor, sad_union for 129 (11.7 us), sad_best
-// for D's 64 steps with only the keys out.
+// 3.35 TB/s.  Its work is 195 M byte absolute differences, accumulated; the
+// body below does four in one 32-bit lane instruction (vabsdiff4, SASS
+// VABSDIFF4.U8.ACC), so 49 M operations, 1.5 us at 33.5e12 a second
+// (chip_smoke.py's PEAK_LANE_OP_S), and bytes bound it.  G does the same
+// for 66 offsets with no predictor, sad_union for 129, sad_best for D's 64
+// steps with only the keys out.
 //
-// Design.  One CTA of 8 warps per MB (11,880 CTAs per CIF P-step): the MB's
-// 48x48 window of the padded previous frame (2.3 KB) goes to shared memory
-// once, the MB's 16x16 block to registers (8 pixels a lane).  Each warp
-// takes every 8th offset; each lane sums |cur - win| over its 8 pixels with
-// __usad and the warp reduces by shuffles.  For D, one warp then reduces
-// the 64 keys and counts the zeros with a ballot, and the CTA copies the
-// winning window from shared memory to the predictor.  The TPU kernel's
-// rolls of the whole padded frame, its lane extension, its 0/1 block-sum
-// matmuls and its bf16 nibble split are not needed here.
+// Design.  One CTA of 8 warps takes a run of up to 8 macroblocks of one MB
+// row of one frame (CIF: 3 runs a row, 1,620 CTAs a P-step), a warp an MB.
+// The CTA brings the run's 48-row strip of the padded previous frame (the
+// MBs' windows overlap, so the strip is ~1.7x the MBs' bytes where a window
+// each would be 9x) and the MBs' current pixels into shared memory with
+// coalesced 16-byte loads, 4 pixels a 32-bit word.  Each lane owns whole
+// SADs: spiral steps k = lane + 32 i (2 a lane for the 64 steps, up to 5
+// for the union offsets), summed over the MB's 16 rows of 4 words, so no
+// step needs a warp reduction.  A candidate row at an unaligned x offset is
+// aligned from 5 words by __funnelshift_r, and each word pair goes through
+// one vabsdiff4 (four byte absolute differences, accumulated).  The strip's
+// row stride, 42 words, spreads the 32 lanes' offsets over the banks (at
+// most 2 lanes of distinct words a bank for the canonical steps and the
+// union).  D then reduces the 64 keys once per MB (a shuffle min) and counts
+// the zeros with a ballot, and 16 lanes copy the winning rows from the
+// strip to the predictor in 16-byte stores.  The TPU kernel's rolls of the
+// whole padded frame, its lane extension, its 0/1 block-sum matmuls and its
+// bf16 nibble split are not needed here.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,46 +58,100 @@ namespace {
 
 constexpr int MB = 16;             // macroblock side
 constexpr int RANGE = 16;          // offsets lie in [-RANGE, RANGE]^2
-constexpr int WIN = MB + 2 * RANGE;
-constexpr int THREADS = 256;       // 8 warps
+constexpr int RUN = 8;             // MBs a CTA, a warp each
+constexpr int THREADS = RUN * 32;
+constexpr int STRIP_ROWS = MB + 2 * RANGE;
+constexpr int STRIP_STRIDE = 42;   // words a strip row: >= RUN * 4 + 8, and 42 = 10 mod 32
+constexpr int CUR_STRIDE = RUN * 4;
 constexpr int MAX_OFFSETS = 160;
+constexpr int MAX_PER_LANE = MAX_OFFSETS / 32;
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ unsigned warp_sum(unsigned v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
+// acc + the sum of the four byte absolute differences of a and b
+__device__ __forceinline__ unsigned sad4(unsigned a, unsigned b, unsigned acc) {
+  unsigned r;
+  asm("vabsdiff4.u32.u32.u32.add %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(acc));
+  return r;
 }
 
-// The SADs of MB (mby, mbx) of frame g at offsets offs[0..n) ((x, y)
-// pairs) into sads[0..n), shared.  win is the CTA's 48x48 window buffer.
-// Ends with a block barrier, so every thread may read sads and win.
-__device__ __forceinline__ void mb_sads(const uint8_t* __restrict__ cur,
-                                        const uint8_t* __restrict__ pad, int H, int W, int g,
-                                        int mby, int mbx, const int* __restrict__ offs, int n,
-                                        uint8_t* win, int* sads) {
+// The CTA's run: frame g, MB row mby, MBs mb0 .. mb0 + nm - 1 of the row.
+struct Run {
+  int g, mby, mb0, nm, mbw, nmb;
+  __device__ __forceinline__ Run(int H, int W) {
+    mbw = W / MB;
+    const int nruns = (mbw + RUN - 1) / RUN, mbh = H / MB;
+    int b = blockIdx.x;
+    const int run = b % nruns;
+    b /= nruns;
+    mby = b % mbh;
+    g = b / mbh;
+    mb0 = run * RUN;
+    nm = min(RUN, mbw - mb0);
+    nmb = mbh * mbw;
+  }
+  __device__ __forceinline__ int mb_index(int m) const { return mby * mbw + mb0 + m; }
+};
+
+// The run's strip of the padded frame (rows mby*16 .. +47, columns mb0*16 ..
+// + nm*16 + 31) and its MBs' current pixels into shared memory, 16 bytes a
+// load.  Ends with a block barrier.
+__device__ __forceinline__ void load_run(const uint8_t* __restrict__ cur,
+                                         const uint8_t* __restrict__ pad, int H, int W,
+                                         const Run& run, unsigned* strip, unsigned* curw) {
   const int PW = W + 2 * RANGE, PH = H + 2 * RANGE;
-  // the window's top-left corner is the MB's origin in the padded frame
-  // shifted by (-RANGE, -RANGE), i.e. (mby * 16, mbx * 16)
-  const uint8_t* src = pad + (long long)g * PH * PW + (long long)(mby * MB) * PW + mbx * MB;
-  for (int i = threadIdx.x; i < WIN * WIN; i += blockDim.x)
-    win[i] = src[(long long)(i / WIN) * PW + i % WIN];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const int r = lane >> 1, c0 = (lane & 1) * 8;  // this lane's 8 pixels: row r, cols c0..c0+7
-  const uint8_t* cb = cur + (long long)g * H * W + (long long)(mby * MB + r) * W + mbx * MB + c0;
-  unsigned cv[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) cv[j] = cb[j];
-  __syncthreads();
-  for (int k = warp; k < n; k += nwarps) {
-    const int ox = offs[2 * k], oy = offs[2 * k + 1];
-    const uint8_t* wp = win + (RANGE + oy + r) * WIN + RANGE + ox + c0;
-    unsigned s = 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s = __usad(cv[j], wp[j], s);
-    s = warp_sum(s);
-    if (lane == 0) sads[k] = (int)s;
+  const int q_row = run.nm + 2;      // 16-byte chunks a strip row
+  const uint8_t* src = pad + ((long long)run.g * PH + run.mby * MB) * PW + run.mb0 * MB;
+  for (int i = threadIdx.x; i < STRIP_ROWS * q_row; i += blockDim.x) {
+    const int r = i / q_row, q = i - r * q_row;
+    const uint4 v = *reinterpret_cast<const uint4*>(src + (long long)r * PW + q * 16);
+    unsigned* dst = strip + r * STRIP_STRIDE + q * 4;
+    dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
+  }
+  const uint8_t* cs = cur + ((long long)run.g * H + run.mby * MB) * W + run.mb0 * MB;
+  for (int i = threadIdx.x; i < MB * run.nm; i += blockDim.x) {
+    const int r = i / run.nm, q = i - r * run.nm;
+    *reinterpret_cast<uint4*>(curw + r * CUR_STRIDE + q * 4) =
+        *reinterpret_cast<const uint4*>(cs + (long long)r * W + q * 16);
   }
   __syncthreads();
+}
+
+// Word j (0..3) of row r of the candidate of MB m at byte column b of the
+// strip (b = m * 16 + RANGE + ox), from the strip's aligned words
+__device__ __forceinline__ void cand_row(const unsigned* strip, int row, int b, unsigned (&w)[4]) {
+  const unsigned* p = strip + row * STRIP_STRIDE + (b >> 2);
+  const unsigned sh = (b & 3) * 8;
+  const unsigned a0 = p[0], a1 = p[1], a2 = p[2], a3 = p[3], a4 = p[4];
+  w[0] = __funnelshift_r(a0, a1, sh);
+  w[1] = __funnelshift_r(a1, a2, sh);
+  w[2] = __funnelshift_r(a2, a3, sh);
+  w[3] = __funnelshift_r(a3, a4, sh);
+}
+
+// The SADs of this warp's MB m at offsets k = lane + 32 i (i < K, k < n)
+// into s[i]; the offsets (x, y) pairs of offs.
+template <int K>
+__device__ __forceinline__ void mb_sads(const unsigned* strip, const unsigned* curw, int m,
+                                        const int* __restrict__ offs, int n, unsigned (&s)[K]) {
+  const int lane = threadIdx.x & 31;
+  int b[K], oy[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const int k = min(lane + 32 * i, n - 1);
+    b[i] = m * MB + RANGE + offs[2 * k];
+    oy[i] = RANGE + offs[2 * k + 1];
+    s[i] = 0;
+  }
+#pragma unroll 4
+  for (int r = 0; r < MB; ++r) {
+    const uint4 c = *reinterpret_cast<const uint4*>(curw + r * CUR_STRIDE + m * 4);
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      unsigned w[4];
+      cand_row(strip, oy[i] + r, b[i], w);
+      s[i] = sad4(c.x, w[0], sad4(c.y, w[1], sad4(c.z, w[2], sad4(c.w, w[3], s[i]))));
+    }
+  }
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -95,48 +159,46 @@ sad_mc_best_kernel(const uint8_t* __restrict__ cur, const uint8_t* __restrict__ 
                    const int* __restrict__ offs, const int* __restrict__ rows, int nrows,
                    int* __restrict__ best, int* __restrict__ zc, int* __restrict__ sads_c,
                    uint8_t* __restrict__ pred) {
-  __shared__ uint8_t win[WIN * WIN];
-  __shared__ int sads[64];
-  __shared__ int best_s;
-  const int mbw = W / MB, nmb = (H / MB) * mbw;
-  const int g = blockIdx.x / nmb, m = blockIdx.x % nmb, mby = m / mbw, mbx = m % mbw;
-  mb_sads(cur, pad, H, W, g, mby, mbx, offs, 64, win, sads);
-
-  const int lane = threadIdx.x & 31;
-  if (threadIdx.x < 32) {
-    const int s0 = sads[lane], s1 = sads[lane + 32];
-    int key = min(s0 * 64 + lane, s1 * 64 + lane + 32);  // first strict minimum
-    for (int o = 16; o > 0; o >>= 1) key = min(key, __shfl_xor_sync(FULL, key, o));
-    const int z = __popc(__ballot_sync(FULL, s0 == 0)) + __popc(__ballot_sync(FULL, s1 == 0));
-    // ranks 0 and 1 share offset (0, 0) and so row 0: both write the same value
-    sads_c[((long long)g * nrows + rows[lane]) * nmb + m] = s0;
-    sads_c[((long long)g * nrows + rows[lane + 32]) * nmb + m] = s1;
-    if (lane == 0) {
-      best[(long long)g * nmb + m] = key & 63;
-      zc[(long long)g * nmb + m] = z;
-      best_s = key & 63;
-    }
+  __shared__ __align__(16) unsigned strip[STRIP_ROWS * STRIP_STRIDE + 4];
+  __shared__ __align__(16) unsigned curw[MB * CUR_STRIDE];
+  const Run run(H, W);
+  load_run(cur, pad, H, W, run, strip, curw);
+  const int m = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (m >= run.nm) return;
+  unsigned s[2];
+  mb_sads<2>(strip, curw, m, offs, 64, s);
+  const int s0 = (int)s[0], s1 = (int)s[1], mi = run.mb_index(m);
+  int key = min(s0 * 64 + lane, s1 * 64 + lane + 32);  // first strict minimum
+  for (int o = 16; o > 0; o >>= 1) key = min(key, __shfl_xor_sync(FULL, key, o));
+  const int z = __popc(__ballot_sync(FULL, s0 == 0)) + __popc(__ballot_sync(FULL, s1 == 0));
+  // ranks 0 and 1 share offset (0, 0) and so row 0: both write the same value
+  sads_c[((long long)run.g * nrows + rows[lane]) * run.nmb + mi] = s0;
+  sads_c[((long long)run.g * nrows + rows[lane + 32]) * run.nmb + mi] = s1;
+  const int bk = key & 63;
+  if (lane == 0) {
+    best[(long long)run.g * run.nmb + mi] = bk;
+    zc[(long long)run.g * run.nmb + mi] = z;
   }
-  __syncthreads();
-  const int ox = offs[2 * best_s], oy = offs[2 * best_s + 1];
-  uint8_t* dst = pred + (long long)g * H * W + (long long)(mby * MB) * W + mbx * MB;
-  for (int i = threadIdx.x; i < MB * MB; i += blockDim.x) {
-    const int r = i / MB, c = i % MB;
-    dst[(long long)r * W + c] = win[(RANGE + oy + r) * WIN + RANGE + ox + c];
+  if (lane < MB) {   // the predictor: row `lane` of the winning candidate
+    unsigned w[4];
+    cand_row(strip, RANGE + offs[2 * bk + 1] + lane, m * MB + RANGE + offs[2 * bk], w);
+    *reinterpret_cast<uint4*>(pred + ((long long)run.g * H + run.mby * MB + lane) * W +
+                              (run.mb0 + m) * MB) = make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 
 __global__ void __launch_bounds__(THREADS)
 sad_best_kernel(const uint8_t* __restrict__ cur, const uint8_t* __restrict__ pad, int H, int W,
                 const int* __restrict__ offs, int* __restrict__ best, int* __restrict__ zc) {
-  __shared__ uint8_t win[WIN * WIN];
-  __shared__ int sads[64];
-  const int mbw = W / MB, nmb = (H / MB) * mbw;
-  const int g = blockIdx.x / nmb, m = blockIdx.x % nmb;
-  mb_sads(cur, pad, H, W, g, m / mbw, m % mbw, offs, 64, win, sads);
-  if (threadIdx.x >= 32) return;
-  const int lane = threadIdx.x;
-  const int s0 = sads[lane], s1 = sads[lane + 32];
+  __shared__ __align__(16) unsigned strip[STRIP_ROWS * STRIP_STRIDE + 4];
+  __shared__ __align__(16) unsigned curw[MB * CUR_STRIDE];
+  const Run run(H, W);
+  load_run(cur, pad, H, W, run, strip, curw);
+  const int m = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (m >= run.nm) return;
+  unsigned s[2];
+  mb_sads<2>(strip, curw, m, offs, 64, s);
+  const int s0 = (int)s[0], s1 = (int)s[1], mi = run.mb_index(m);
   int key = min(s0 * 64 + lane, s1 * 64 + lane + 32);  // first strict minimum
   for (int o = 16; o > 0; o >>= 1) key = min(key, __shfl_xor_sync(FULL, key, o));
   // bit k of zeros: step k's SAD is 0, steps in walk order
@@ -145,29 +207,50 @@ sad_best_kernel(const uint8_t* __restrict__ cur, const uint8_t* __restrict__ pad
   if (lane == 0) {
     const int z = __popcll(zeros);
     // two or more zeros: the walk breaks at the second, which wins
-    best[(long long)g * nmb + m] = z >= 2 ? __ffsll(zeros & (zeros - 1)) - 1 : key & 63;
-    zc[(long long)g * nmb + m] = z;
+    best[(long long)run.g * run.nmb + mi] = z >= 2 ? __ffsll(zeros & (zeros - 1)) - 1 : key & 63;
+    zc[(long long)run.g * run.nmb + mi] = z;
   }
 }
 
+// K offsets a lane: n <= 32 K
+template <int K>
 __global__ void __launch_bounds__(THREADS)
 sad_offsets_kernel(const uint8_t* __restrict__ cur, const uint8_t* __restrict__ pad, int H, int W,
                    const int* __restrict__ offs, int n, int* __restrict__ out) {
-  __shared__ uint8_t win[WIN * WIN];
-  __shared__ int sads[MAX_OFFSETS];
-  const int mbw = W / MB, nmb = (H / MB) * mbw;
-  const int g = blockIdx.x / nmb, m = blockIdx.x % nmb;
-  mb_sads(cur, pad, H, W, g, m / mbw, m % mbw, offs, n, win, sads);
-  for (int k = threadIdx.x; k < n; k += blockDim.x)
-    out[((long long)g * n + k) * nmb + m] = sads[k];
+  __shared__ __align__(16) unsigned strip[STRIP_ROWS * STRIP_STRIDE + 4];
+  __shared__ __align__(16) unsigned curw[MB * CUR_STRIDE];
+  const Run run(H, W);
+  load_run(cur, pad, H, W, run, strip, curw);
+  const int m = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (m >= run.nm) return;
+  unsigned s[K];
+  mb_sads<K>(strip, curw, m, offs, n, s);
+  const int mi = run.mb_index(m);
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const int k = lane + 32 * i;
+    if (k < n) out[((long long)run.g * n + k) * run.nmb + mi] = (int)s[i];
+  }
+}
+
+unsigned grid(int nframes, int H, int W) {
+  const long long mbw = W / MB;
+  return (unsigned)((long long)nframes * (H / MB) * ((mbw + RUN - 1) / RUN));
+}
+
+template <int K>
+void launch_offsets(const void* cur, const void* pad, int nframes, int H, int W, const int* offs,
+                    int n, int* out, cudaStream_t stream) {
+  sad_offsets_kernel<K><<<grid(nframes, H, W), THREADS, 0, stream>>>(
+      static_cast<const uint8_t*>(cur), static_cast<const uint8_t*>(pad), H, W, offs, n, out);
 }
 
 }  // namespace
 
 // Plain C entry points, bound with ctypes by ops/me_fused.py.  cur is
-// (nframes, H, W) u8 and pad (nframes, H+32, W+32) u8, contiguous, H and W
-// multiples of 16; offs an int32 (n, 2) table of (x, y) offsets in
-// [-16, 16].  Each returns cudaGetLastError() after its launch.
+// (nframes, H, W) u8 and pad (nframes, H+32, W+32) u8, contiguous and
+// 16-byte aligned, H and W multiples of 16; offs an int32 (n, 2) table of
+// (x, y) offsets in [-16, 16].  Each returns cudaGetLastError() after its launch.
 
 // D: offs holds the 64 canonical steps, rows (64) each step's SAD row;
 // best, zc (nframes, H/16, W/16) i32, sads_c (nframes, nrows, H/16, W/16)
@@ -175,8 +258,7 @@ sad_offsets_kernel(const uint8_t* __restrict__ cur, const uint8_t* __restrict__ 
 extern "C" int icsp_sad_mc_best(const void* cur, const void* pad, int nframes, int H, int W,
                                 const int* offs, const int* rows, int nrows, int* best, int* zc,
                                 int* sads_c, void* pred, void* stream) {
-  const long long nblk = (long long)nframes * (H / MB) * (W / MB);
-  sad_mc_best_kernel<<<(unsigned)nblk, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  sad_mc_best_kernel<<<grid(nframes, H, W), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(cur), static_cast<const uint8_t*>(pad), H, W, offs, rows,
       nrows, best, zc, sads_c, static_cast<uint8_t*>(pred));
   return (int)cudaGetLastError();
@@ -186,19 +268,23 @@ extern "C" int icsp_sad_mc_best(const void* cur, const void* pad, int nframes, i
 // W/16) i32.
 extern "C" int icsp_sad_best(const void* cur, const void* pad, int nframes, int H, int W,
                              const int* offs, int* best, int* zc, void* stream) {
-  const long long nblk = (long long)nframes * (H / MB) * (W / MB);
-  sad_best_kernel<<<(unsigned)nblk, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  sad_best_kernel<<<grid(nframes, H, W), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(cur), static_cast<const uint8_t*>(pad), H, W, offs, best, zc);
   return (int)cudaGetLastError();
 }
 
-// G and sad_union: the SADs at n <= 160 offsets into out (nframes, n,
-// H/16, W/16) i32.
+// G and sad_union: the SADs at 1 <= n <= 160 offsets into out (nframes,
+// n, H/16, W/16) i32.
 extern "C" int icsp_sad_offsets(const void* cur, const void* pad, int nframes, int H, int W,
                                 const int* offs, int n, int* out, void* stream) {
-  if (n > MAX_OFFSETS) return (int)cudaErrorInvalidValue;
-  const long long nblk = (long long)nframes * (H / MB) * (W / MB);
-  sad_offsets_kernel<<<(unsigned)nblk, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(cur), static_cast<const uint8_t*>(pad), H, W, offs, n, out);
+  if (n < 1 || n > MAX_OFFSETS) return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  switch ((n + 31) / 32) {
+    case 1: launch_offsets<1>(cur, pad, nframes, H, W, offs, n, out, st); break;
+    case 2: launch_offsets<2>(cur, pad, nframes, H, W, offs, n, out, st); break;
+    case 3: launch_offsets<3>(cur, pad, nframes, H, W, offs, n, out, st); break;
+    case 4: launch_offsets<4>(cur, pad, nframes, H, W, offs, n, out, st); break;
+    default: launch_offsets<MAX_PER_LANE>(cur, pad, nframes, H, W, offs, n, out, st);
+  }
   return (int)cudaGetLastError();
 }

@@ -38,11 +38,13 @@
 // Bound on this card.  One luma call of a CIF P-step (30 frames, 47,520
 // blocks) reads 12.2 MB of int32 residuals and writes 6.1 MB of int16
 // symbols, 12.2 MB of int32 r and 0.05 MB of flags: ~30 MB, 9 us at
-// 3.35 TB/s.  The float path's function is the two dense 64x64 products,
-// 2 x 4,096 FP64 multiply-adds a block: 0.78 GFLOP for the luma call,
-// 11.6 us at the 67 TFLOP/s of the FP64 tensor cores, so operations bound
-// it.  The exact path's separable transforms are 4,096 flops a block and
-// bytes bound it.  Beside the bound, the DC chain's 114 dependent
+// 3.35 TB/s.  The float path's function is the two 64x64 products in
+// double: the forward dense, 4,096 FP64 multiply-adds a block (0.39 GFLOP
+// for the luma call, 5.8 us at the 67 TFLOP/s of the FP64 tensor cores),
+// the inverse 64 for each nonzero dequantized value, which the data
+// decides (chip_smoke.py counts them, and takes the larger of the two
+// bounds).  The kernel runs the inverse dense all the same.  The exact path's separable
+// transforms are 4,096 flops a block and bytes bound it.  Beside the bound, the DC chain's 114 dependent
 // diagonals (CIF luma) take one warp's instruction latency each, about
 // 0.3 us on an H100 (PERF.md), so the design keeps every step short.
 //
@@ -78,8 +80,8 @@ template <> struct Rn<double> {
 };
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int CHAIN_MAX_ROWS = 16;  // block rows a lane of the walk holds: gh <= 512
-                                    // (frames up to 4096 lines)
+constexpr int CHAIN_MAX_ROWS = 16;  // sets of 32 block rows a lane of the walk holds at
+                                    // once; taller planes are walked in bands of 512 rows
 constexpr int BLOCK_WARPS = 8;      // warps per CTA of launch 2
 constexpr int MMA_WARPS = 16;       // warps per CTA of launch 2, float (one CTA per SM)
 constexpr int TILE = 8;             // blocks per warp tile of the float path (the mma's n)
@@ -190,18 +192,22 @@ constexpr int chain_threads(int rows) { return rows <= 4 ? 1024 : 512; }
 // One CTA per plane.  All threads compute the DC slots of the plane's blocks
 // and copy the kind grid into shared memory (in_smem), or into the global
 // scratch dc_g beside the kind grid kind_g (planes too large); then warp 0
-// walks the diagonals.  Its lane holds block rows lane + 32 r (r < ROWS),
-// each with its last three dq in registers: at step d, row gy takes cell gx
-// = d - 2 gy, whose left neighbour is its own last dq and whose upper
-// neighbours (gx + 1, gx, gx - 1) row gy - 1 took at steps d - 1, d - 2 and
-// d - 3 (at gx = gw - 1 that row ended a step early: ur = u, ul its second
-// last), read from lane gy - 1 by a shuffle.  A step touches memory only
-// to store its result, qdq[cell] = (q, dq), and to load the next step's
-// slot and kind.  One warp walks, so the walk's time is the latency of its
-// instructions: the step has no branch, the quotient by qdc is a multiply,
-// and ROWS is the least power of two >= gh / 32, so that no lane steps
-// through many rows that do not exist.  tab: the double path's 65
-// values (IRT2 last).
+// walks the diagonals.  Its lane holds block rows lane + 32 r (r < ROWS) of
+// the current band of 32 ROWS rows, each with its last three dq in
+// registers: at step d, row gy takes cell gx = d - 2 gy, whose left
+// neighbour is its own last dq and whose upper neighbours (gx + 1, gx, gx -
+// 1) row gy - 1 took at steps d - 1, d - 2 and d - 3 (at gx = gw - 1 that
+// row ended a step early: ur = u, ul its second last), read from lane gy -
+// 1 by a shuffle.  A step touches memory only to store its result,
+// qdq[cell] = (q, dq), and to load the next step's slot and kind.  One warp
+// walks, so the walk's time is the latency of its instructions: the step
+// has no branch, the quotient by qdc is a multiply, and ROWS is the least
+// power of two >= gh / 32 (at most CHAIN_MAX_ROWS), so that no lane steps
+// through many rows that do not exist.  A plane of more than 32 ROWS rows is
+// walked band after band: the top row of a band reads the dq of the row
+// above it, which the band before finished, from a copy of that row in
+// shared memory (upper), at the clamped columns the plain version reads.
+// tab: the double path's 65 values (IRT2 last).
 template <typename T, bool CHROMA, int ROWS>
 __global__ void __launch_bounds__(chain_threads(ROWS))
 chain_kernel(Blocks blk, const double* __restrict__ tab, const int* __restrict__ kind_g, int gh,
@@ -213,6 +219,7 @@ chain_kernel(Blocks blk, const double* __restrict__ tab, const int* __restrict__
   S* slot = in_smem ? reinterpret_cast<S*>(smem) : dc_g + (long long)plane * ncp;
   int* kind_s = reinterpret_cast<int*>(smem + sizeof(S) * ncp);
   const int* kind = in_smem ? kind_s : kind_g;
+  int* upper = in_smem ? kind_s + ncp : reinterpret_cast<int*>(smem);
   const double irt2 = std::is_same<T, double>::value ? tab[64] : 0.0;
   for (int c = threadIdx.x; c < ncp; c += blockDim.x) {
     const int gy = c / gw, gx = c - gy * gw;
@@ -224,46 +231,67 @@ chain_kernel(Blocks blk, const double* __restrict__ tab, const int* __restrict__
   const int lane = threadIdx.x;
   const unsigned long long mdc = div_multiplier(qdc);
   int2* out = qdq + (long long)plane * ncp;
-  int h1[ROWS], h2[ROWS], h3[ROWS], kn[ROWS];
-  S vn[ROWS];
+  // only the walk of CHAIN_MAX_ROWS sets takes planes of more than one band
+  constexpr bool BANDS = ROWS == CHAIN_MAX_ROWS;
+  for (int gy0 = 0; gy0 < gh; gy0 += 32 * ROWS) {
+    const bool band = BANDS && gy0 > 0;   // a band below another: its top row reads upper
+    if (band) {
+      __syncwarp();   // the band above stored its results
+      for (int x = lane; x < gw; x += 32) upper[x] = out[(long long)(gy0 - 1) * gw + x].y;
+      __syncwarp();
+    }
+    int h1[ROWS], h2[ROWS], h3[ROWS], kn[ROWS];
+    S vn[ROWS];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {   // step 0 takes cell 0 alone
-    h1[r] = h2[r] = h3[r] = 0;
-    vn[r] = slot[0];
-    kn[r] = kind[0];
-  }
-  const int nsteps = 2 * (gh - 1) + gw;
-  for (int d = 0; d < nsteps; ++d) {
-    // sets from the last down: set r's shuffle reads set r - 1 (lane 31)
-    // before that set takes its step; the body has no branch
+    for (int r = 0; r < ROWS; ++r) {   // the band's first step takes its cell (gy0, 0) alone
+      h1[r] = h2[r] = h3[r] = 0;
+      vn[r] = slot[gy0 * gw];
+      kn[r] = kind[gy0 * gw];
+    }
+    // the top row's upper neighbours (ur, u, ul) for the next step
+    int p1 = band ? upper[min(1, gw - 1)] : 0, p2 = band ? upper[0] : 0, p3 = p2;
+    const int d_end = 2 * min(gh - 1, gy0 + 32 * ROWS - 1) + gw;
+    for (int d = 2 * gy0; d < d_end; ++d) {
+      const int t1 = p1, t2 = p2, t3 = p3;
+      if (band) {
+        const int gxn = min(max(d + 1 - 2 * gy0, 0), gw - 1);
+        p1 = upper[min(gxn + 1, gw - 1)];
+        p2 = upper[gxn];
+        p3 = upper[max(gxn - 1, 0)];
+      }
+      // sets from the last down: set r's shuffle reads set r - 1 (lane 31)
+      // before that set takes its step; the body has no branch
 #pragma unroll
-    for (int r = ROWS - 1; r >= 0; --r) {
-      const int gy = lane + 32 * r, gx = d - 2 * gy;
-      const bool on = gy < gh && gx >= 0 && gx < gw;
-      const S v = vn[r];
-      const int kk = kn[r];
-      // the cell of step d + 1, loaded while this one is worked
-      const bool on1 = gy < gh && gx + 1 >= 0 && gx + 1 < gw;
-      const int c1 = on1 ? gy * gw + gx + 1 : 0;
-      vn[r] = slot[c1];
-      kn[r] = kind[c1];
-      // lane L reads row gy - 1: lane L - 1's set r, or for lane 0 lane
-      // 31's set r - 1
-      const bool wrap = lane == 31 && r > 0;
-      const int src = (lane + 31) & 31;
-      const int u1 = __shfl_sync(FULL, wrap ? h1[r > 0 ? r - 1 : 0] : h1[r], src);
-      const int u2 = __shfl_sync(FULL, wrap ? h2[r > 0 ? r - 1 : 0] : h2[r], src);
-      const int u3 = __shfl_sync(FULL, wrap ? h3[r > 0 ? r - 1 : 0] : h3[r], src);
-      const bool last = gx == gw - 1;
-      const int l = h1[r], ur = u1, u = last ? u1 : u2, ul = last ? u2 : u3;
-      const int pred = kk == 0 ? 1024 : kk == 1 ? l : kk == 2 ? u
-                     : kk == 3 ? median3(l, ul, u) : median3(l, u, ur);
-      const int qv = div_trunc(chain_t<T, CHROMA>(v, pred), qdc, mdc);
-      const int dqv = qv * qdc + pred;
-      if (on) out[gy * gw + gx] = make_int2(qv, dqv);
-      h3[r] = on ? h2[r] : h3[r];
-      h2[r] = on ? h1[r] : h2[r];
-      h1[r] = on ? dqv : h1[r];
+      for (int r = ROWS - 1; r >= 0; --r) {
+        const int gy = gy0 + lane + 32 * r, gx = d - 2 * gy;
+        const bool on = gy < gh && gx >= 0 && gx < gw;
+        const S v = vn[r];
+        const int kk = kn[r];
+        // the cell of step d + 1, loaded while this one is worked
+        const bool on1 = gy < gh && gx + 1 >= 0 && gx + 1 < gw;
+        const int c1 = on1 ? gy * gw + gx + 1 : 0;
+        vn[r] = slot[c1];
+        kn[r] = kind[c1];
+        // lane L reads row gy - 1: lane L - 1's set r, or for lane 0 lane
+        // 31's set r - 1; the band's top row reads upper
+        const bool wrap = lane == 31 && r > 0;
+        const int src = (lane + 31) & 31;
+        const int u1 = __shfl_sync(FULL, wrap ? h1[r > 0 ? r - 1 : 0] : h1[r], src);
+        const int u2 = __shfl_sync(FULL, wrap ? h2[r > 0 ? r - 1 : 0] : h2[r], src);
+        const int u3 = __shfl_sync(FULL, wrap ? h3[r > 0 ? r - 1 : 0] : h3[r], src);
+        const bool last = gx == gw - 1, top = band && r == 0 && lane == 0;
+        const int l = h1[r];
+        const int ur = top ? t1 : u1, u = top ? t2 : last ? u1 : u2;
+        const int ul = top ? t3 : last ? u2 : u3;
+        const int pred = kk == 0 ? 1024 : kk == 1 ? l : kk == 2 ? u
+                       : kk == 3 ? median3(l, ul, u) : median3(l, u, ur);
+        const int qv = div_trunc(chain_t<T, CHROMA>(v, pred), qdc, mdc);
+        const int dqv = qv * qdc + pred;
+        if (on) out[gy * gw + gx] = make_int2(qv, dqv);
+        h3[r] = on ? h2[r] : h3[r];
+        h2[r] = on ? h1[r] : h2[r];
+        h1[r] = on ? dqv : h1[r];
+      }
     }
   }
 }
@@ -616,11 +644,12 @@ struct ChainArgs {
   int nplanes, gh, gw, qdc;
   void* dc;
   int2* qdq;
-  size_t smem;  // 0: the DC slots go to dc (planes too large for shared memory)
+  int in_smem;  // 0: the DC slots go to dc (planes too large for shared memory)
+  size_t smem;
   cudaStream_t stream;
 };
 
-// Launch 1 for planes of up to 32 * ROWS block rows
+// Launch 1: one band of up to 32 * ROWS block rows at a time
 template <typename T, bool CHROMA, int ROWS>
 cudaError_t launch_chain(const ChainArgs& a) {
   if (a.smem > 48 * 1024) {
@@ -629,7 +658,7 @@ cudaError_t launch_chain(const ChainArgs& a) {
     if (err != cudaSuccess) return err;
   }
   chain_kernel<T, CHROMA, ROWS><<<a.nplanes, chain_threads(ROWS), a.smem, a.stream>>>(
-      a.blk, a.tab, a.kind, a.gh, a.gw, a.qdc, a.smem > 0, static_cast<DcSlot<T>*>(a.dc), a.qdq);
+      a.blk, a.tab, a.kind, a.gh, a.gw, a.qdc, a.in_smem, static_cast<DcSlot<T>*>(a.dc), a.qdq);
   return cudaGetLastError();
 }
 
@@ -641,9 +670,12 @@ int launch(const Blocks& blk, const void* tab, const int* zz, const int* kind, i
   DeviceInfo info;
   cudaError_t err = device_info(&info);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = chain_smem<T>(gh, gw) <= (size_t)info.smem_optin ? chain_smem<T>(gh, gw) : 0;
+  // a plane walked in bands keeps a copy of the row above the band in shared memory
+  const size_t upper = gh > 32 * CHAIN_MAX_ROWS ? sizeof(int) * (size_t)gw : 0;
+  const size_t all = chain_smem<T>(gh, gw) + upper;
+  const int in_smem = all <= (size_t)info.smem_optin;
   const ChainArgs ca{blk, static_cast<const double*>(tab), kind, nplanes, gh, gw, qdc, dc, qdq,
-                     smem, stream};
+                     in_smem, in_smem ? all : upper, stream};
   const int rows = (gh + 31) / 32;
   err = rows <= 1   ? launch_chain<T, CHROMA, 1>(ca)
         : rows <= 2 ? launch_chain<T, CHROMA, 2>(ca)
@@ -678,7 +710,7 @@ int launch(const Blocks& blk, const void* tab, const int* zz, const int* kind, i
 // shared memory;
 // qdq (nplanes*gh*gw*2 int32): scratch; scan (nplanes, gh, gw, 64) i16; acf
 // (nplanes, gh, gw) i8; r (nplanes, gh*8, gw*8): int32 for luma, float or
-// double for chroma; at most MAX_CELLS blocks and 512 block rows (the
+// double for chroma; at most MAX_CELLS blocks, planes of any height (the
 // wrapper splits a larger call over its planes).  Returns cudaGetLastError()
 // after the second launch (cudaErrorInvalidValue for a layout or size it
 // does not take).
@@ -688,7 +720,7 @@ extern "C" int icsp_xform_fwd(const void* blocks, long long s_f, long long s_gy,
                               int gh, int gw, int qdc, int qac, void* dc, void* qdq, void* scan,
                               void* acf, void* r, void* stream) {
   if (s_x != 1 || (s_f | s_gy | s_gx | s_y) % 4 != 0 || reinterpret_cast<uintptr_t>(blocks) % 16 ||
-      (long long)nplanes * gh * gw > MAX_CELLS || gh > 32 * CHAIN_MAX_ROWS)
+      (long long)nplanes * gh * gw > MAX_CELLS)
     return (int)cudaErrorInvalidValue;
   const Blocks blk{static_cast<const int*>(blocks), s_f, s_gy, s_gx, s_y, s_x};
   auto st = static_cast<cudaStream_t>(stream);

@@ -114,7 +114,7 @@ def encode_inter_frame(cur_y, cur_cb, cur_cr, prev_y, prev_cb, prev_cr, qdc: int
     # chroma: Cb and Cr stacked into one batch, one kernel F launch; the
     # predictor is added in float BEFORE the (int) cast (enc src:2538 ff.)
     err = to_blocks(torch.cat([cur_cb, cur_cr]).to(torch.int32) - pred_c.to(torch.int32))
-    c = encode_chroma_batch(err, qdc, qac, table=table, dtype=dtype, xform=True)
+    c = encode_chroma_batch(err, qdc, qac, table=table, dtype=dtype)
     rec = torch.clamp(c_trunc(pred_c.to(dtype) + from_blocks(c["idct"])), 0, 255).to(torch.uint8)
     for i, name in enumerate(("cb", "cr")):
         sl = slice(i * g, (i + 1) * g)

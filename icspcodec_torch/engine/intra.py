@@ -1,12 +1,13 @@
 """Intra frame engine: batched whole-frame encode and decode.
 
-Everything embarrassingly parallel (chroma DCT, AC quantization, IDCT,
-plane assembly) is one batched tensor op over all blocks of all frames;
-the sequential chains go through the kernel wrappers: the luma pixel
-wavefronts (ops/intra_fused.py, kernel A, to encode; ops/intra_decode_fused.py,
-kernel C, to decode) and the chroma DC chains (ops/dc_fused.py, kernels B
-and B'); the inter encoder's chroma chain runs whole as kernel F
-(ops/xform_fused.py).  Each wrapper runs its CUDA kernel on a CUDA tensor and its plain
+Everything embarrassingly parallel (the decoder's chroma dequantization
+and IDCT, plane assembly) is one batched tensor op over all blocks of all
+frames; the sequential chains go through the kernel wrappers: the luma
+pixel wavefronts (ops/intra_fused.py, kernel A, to encode;
+ops/intra_decode_fused.py, kernel C, to decode), the encoder's chroma chain whole as kernel F
+(ops/xform_fused.py: DCT, DC chain, quantization, IDCT), intra and inter
+alike, and the decoder's inverse chroma DC chain (ops/dc_fused.py, kernel
+B').  Each wrapper runs its CUDA kernel on a CUDA tensor and its plain
 version on a CPU tensor, in float32 and float64.
 """
 from __future__ import annotations
@@ -14,12 +15,12 @@ from __future__ import annotations
 import torch
 
 from ..constants import COS_DEC, COS_ENC
-from ..ops.dc_fused import dc_dpcm_fused, idc_dpcm_fused
+from ..ops.dc_fused import idc_dpcm_fused
 from ..ops.intra_decode_fused import intra_luma_decode_fused
 from ..ops.intra_fused import intra_luma_scan_fused
-from ..ops.quant import ac_flag, c_trunc, dequant_block, quant_block
-from ..ops.scanorder import izigzag, zigzag
-from ..ops.transforms import fdct, idct
+from ..ops.quant import c_trunc, dequant_block
+from ..ops.scanorder import izigzag
+from ..ops.transforms import idct
 from ..ops.xform_fused import xform_fwd_fused
 
 
@@ -38,31 +39,18 @@ def from_blocks(blocks: torch.Tensor) -> torch.Tensor:
 
 
 def encode_chroma_batch(planes: torch.Tensor, qdc: int, qac: int, table=COS_ENC,
-                        dtype=torch.float64, xform: bool = False):
+                        dtype=torch.float64):
     """Forward chroma chain for (F, H, W) pixel planes (intra) or (F, gh, gw,
-    8, 8) residual blocks (inter).  Returns dict(scan, acflag, idct); idct
-    is the float inverse-DCT output, which callers turn into pixels their
-    own way.
+    8, 8) residual blocks (inter), the whole chain as kernel F
+    (ops/xform_fused.py).  Returns dict(scan, acflag, idct); idct is the
+    float inverse-DCT output, which callers turn into pixels their own way.
 
-    xform=True runs the whole chain as kernel F (ops/xform_fused.py), as
-    the JAX package does inside its GOP scan; the intra callers keep the
-    batched ops around the DC chain of kernel B, as the JAX package does for
-    its large intra batches.  Both give the same symbols in float64."""
+    The JAX package runs its large intra batches through batched ops around
+    its DC chain kernel; F gives the same symbols and idct output in both
+    precisions (tests/test_torch_intra_chroma.py)."""
     blocks = to_blocks(planes) if planes.dim() == 3 else planes
-    if xform:
-        out = xform_fwd_fused(blocks, qdc, qac, chroma=True, table=table, dtype=dtype)
-        return dict(scan=out["scan"], acflag=out["acflag"], idct=out["r"])
-    blocks = blocks.to(torch.int32)
-    d = fdct(blocks, table=table, dtype=dtype)
-    q_dc, dq_dc = dc_dpcm_fused(d[..., 0, 0], qdc, chroma=True)
-    q = quant_block(d, qdc, qac, chroma=True)
-    q[..., 0, 0] = q_dc
-    sc = zigzag(q)
-    acf = ac_flag(q)
-    iq = dequant_block(q, qdc, qac)
-    iq[..., 0, 0] = dq_dc
-    r = idct(iq, table=table, dtype=dtype)
-    return dict(scan=sc, acflag=acf, idct=r)
+    out = xform_fwd_fused(blocks, qdc, qac, chroma=True, table=table, dtype=dtype)
+    return dict(scan=out["scan"], acflag=out["acflag"], idct=out["r"])
 
 
 def encode_intra_frames(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor, qdc: int,

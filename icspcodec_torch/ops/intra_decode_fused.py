@@ -9,6 +9,11 @@ launches the kernel or raises.  float64 is bit-identical to the plain
 version; float32 takes the separable transform where the plain version on
 the card sums the 64x64 product in float64, so a pixel on a truncation
 boundary may differ by one (chip_smoke.py counts the differences).
+
+The wrapper hands the kernel a global scratch ring of RING_ROW_BYTES a
+block row; the kernel keeps its ring of boundary state in shared memory
+where it fits and in the scratch otherwise, so it takes every height the
+header carries.
 """
 from __future__ import annotations
 
@@ -28,12 +33,14 @@ from . import _build
 launches = 0  # kernel launches, for showing that a run went through it
 _consts: dict = {}
 
+RING_ROW_BYTES = 96   # csrc/intra_decode.cu: the ring of one block row (it checks the size)
+
 
 def _lib():
     fn = _build.load("intra_decode").icsp_intra_decode
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, p, p, p, i, i, i, i, i, p, p]
+        fn.argtypes = [p, p, p, i, p, p, p, i, i, i, i, i, p, p, ctypes.c_longlong, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -106,11 +113,13 @@ def intra_luma_decode_fused(y_scan: torch.Tensor, mpm: torch.Tensor, mode_bit: t
     plane = torch.empty((fdim, gh * 8, gw * 8), dtype=torch.uint8, device=dev)
     if fdim == 0:
         return plane
+    ring = torch.empty(fdim * gh * RING_ROW_BYTES, dtype=torch.uint8, device=dev)
     fn = _lib()
     with torch.cuda.device(dev):
         err = fn(sc.data_ptr(), mp.data_ptr(), mb.data_ptr(), int(dtype == torch.float64),
                  kind.data_ptr(), tabs.data_ptr(), izz.data_ptr(), fdim, gh, gw, int(qdc),
-                 int(qac), plane.data_ptr(), _build.stream_ptr(dev))
+                 int(qac), plane.data_ptr(), ring.data_ptr(), ring.numel(),
+                 _build.stream_ptr(dev))
     _build.check(err, "intra_decode kernel")
     launches += 1
     return plane

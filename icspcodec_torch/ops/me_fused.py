@@ -73,6 +73,13 @@ def _check(cur: torch.Tensor, pad: torch.Tensor, what: str):
         raise ValueError(f"{what} runs on cpu or cuda tensors, got {cur.device}")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor whose data starts on 16 bytes, as the kernels'
+    16-byte loads and stores need: the tensor itself when it is one."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def sad_mc_best_plain(cur: torch.Tensor, pad: torch.Tensor):
     """The plain version of D: the canonical SAD rows by sad_dense, the
     first strict minimum of the 64-step walk, the zero count and the
@@ -109,7 +116,7 @@ def sad_mc_best(cur: torch.Tensor, pad: torch.Tensor):
         return best, zc, sads_c, pred
     offs = device_table(SPIRAL.astype(np.int32), dev)
     rows = device_table(SPIRAL_STATE_IDX[0].astype(np.int32), dev)
-    src, padc = cur.contiguous(), pad.contiguous()
+    src, padc = _aligned(cur), _aligned(pad)
     fn = _lib_d()
     with torch.cuda.device(dev):
         err = fn(src.data_ptr(), padc.data_ptr(), g, h, w, offs.data_ptr(), rows.data_ptr(),
@@ -136,7 +143,7 @@ def _sad_offsets(cur: torch.Tensor, pad: torch.Tensor, offsets: np.ndarray, what
     if g == 0:
         return out, False
     offs = device_table(offsets.astype(np.int32), dev)
-    src, padc = cur.contiguous(), pad.contiguous()
+    src, padc = _aligned(cur), _aligned(pad)
     fn = _lib_g()
     with torch.cuda.device(dev):
         err = fn(src.data_ptr(), padc.data_ptr(), g, h, w, offs.data_ptr(), n, out.data_ptr(),
@@ -188,7 +195,7 @@ def sad_best(cur: torch.Tensor, pad: torch.Tensor):
     if g == 0:
         return best, zc
     offs = device_table(SPIRAL.astype(np.int32), dev)
-    src, padc = cur.contiguous(), pad.contiguous()
+    src, padc = _aligned(cur), _aligned(pad)
     fn = _lib_best()
     with torch.cuda.device(dev):
         err = fn(src.data_ptr(), padc.data_ptr(), g, h, w, offs.data_ptr(), best.data_ptr(),

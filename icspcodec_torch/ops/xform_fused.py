@@ -33,7 +33,6 @@ from . import _build
 launches = 0  # kernel launches, for showing that a run went through it
 
 MAX_CELLS = 1 << 25   # blocks a kernel call takes (csrc/xform_fwd.cu MAX_CELLS)
-MAX_BLOCK_ROWS = 512  # block rows the DC walk takes: frames up to 4096 lines
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,10 +85,12 @@ def _kernel_blocks(blocks: torch.Tensor) -> torch.Tensor:
 def _plane_batches(nplanes: int, gh: int, gw: int) -> list[tuple[int, int]]:
     """The kernel calls of one xform_fwd_fused call: [start, stop) ranges of
     planes, each of at most MAX_CELLS blocks (planes are independent).
-    Raises ValueError for planes the kernel cannot take."""
-    if gh > MAX_BLOCK_ROWS or gh * gw > MAX_CELLS:
-        raise ValueError(f"kernel F takes planes of at most {MAX_BLOCK_ROWS} block rows and "
-                         f"{MAX_CELLS} blocks, got {gh} x {gw}")
+    The DC walk takes planes of any height (in bands of 512 block rows), so
+    every height the header carries (up to 8,190 block rows); a plane of
+    more than MAX_CELLS blocks raises ValueError."""
+    if gh * gw > MAX_CELLS:
+        raise ValueError(f"kernel F takes planes of at most {MAX_CELLS} blocks, "
+                         f"got {gh} x {gw}")
     step = MAX_CELLS // (gh * gw)
     return [(p, min(p + step, nplanes)) for p in range(0, nplanes, step)]
 
@@ -118,8 +119,8 @@ def xform_fwd_fused(blocks: torch.Tensor, qdc: int, qac: int, chroma: bool, tabl
     trunc(idct) int32 for luma and the raw idct in dtype for chroma (the
     caller adds the predictor in float before its (int) cast).  dtype
     float32 is the fast path, float64 the exact one.  On the card, planes
-    of up to 512 block rows (frames up to 4096 lines), any number of them:
-    a call of more than MAX_CELLS blocks is split over its planes."""
+    of any height and at most MAX_CELLS blocks, any number of them: a call
+    of more than MAX_CELLS blocks is split over its planes."""
     global launches
     if blocks.dim() != 5 or blocks.shape[3:] != (8, 8):
         raise ValueError(f"blocks must be (F, gh, gw, 8, 8), got {tuple(blocks.shape)}")

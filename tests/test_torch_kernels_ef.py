@@ -9,14 +9,16 @@
   magnitude below 2^15 is exact in double, and the 64-term double sums of
   such products do not depend on their order: what lets kernel F's float
   path run its dense products on the FP64 tensor cores and still equal the
-  plain version bit for bit;
+  plain version bit for bit, and kernel A's (residuals |e| <= 255 forward,
+  dequantized values |iq| < 2^15 inverse) likewise;
 * the DC term of a block is its integer sum, exactly: S / 8 in float32,
   ((S * IRT2) * IRT2) * 0.25 in float64 (kernel F's first launch);
 * kernel F's device arguments (tables in fragment order, zig-zag order,
   kind grid), cached per (table, precision, grid, device), equal the ones
   built afresh;
 * a kernel F call of more blocks than one launch takes is split over its
-  planes, and planes taller than the DC walk takes are refused.
+  planes; planes of every height the header carries are taken, and only a
+  plane of more blocks than one launch takes is refused.
 """
 import pathlib
 import re
@@ -76,27 +78,33 @@ def _matrices(table):
     return [tables.fdct_matrix(key, "float32"), tables.idct_matrix(key, "float32")]
 
 
+@pytest.mark.parametrize("matrix, bound", [(0, 255), (1, 2 ** 15 - 1)],
+                         ids=["forward-residuals", "inverse-dequantized"])
 @pytest.mark.parametrize("table", [COS_ENC, COS_DEC], ids=["enc", "dec"])
-def test_float_matrix_products_and_sums_are_exact_in_double(table):
-    rng = np.random.default_rng(0)
-    ints = [2 ** 15 - 1, -(2 ** 15 - 1), 255, -255] + rng.integers(-2 ** 15 + 1, 2 ** 15,
-                                                                  8).tolist()
-    for m in _matrices(table):
-        for e in np.unique(m):   # every entry, once per distinct value
-            for v in ints:
-                assert Fraction(float(np.float64(e) * v)) == Fraction(float(e)) * v
-        # each entry a multiple of 2^-29 and each row's absolute sum below 9:
-        # every partial sum of 64 such products is a multiple of 2^-29 below
-        # 2^19, 48 bits, so exact in double in any order
-        m64 = m.astype(np.float64)
-        assert np.all(np.floor(m64 * 2.0 ** 29) == m64 * 2.0 ** 29)
-        assert np.abs(m64).sum(axis=1).max() < 9
-        v = rng.integers(-2 ** 15 + 1, 2 ** 15, (64, 256)).astype(np.float64)
-        seq = m64[:, 0, None] * v[0]
-        for k in range(1, 64):         # index order, as dense_f64 summed
-            seq = seq + m64[:, k, None] * v[k]
-        blocked = sum(m64[:, k::4] @ v[k::4] for k in range(4))   # an mma-like order
-        assert np.array_equal(seq, m64 @ v) and np.array_equal(seq, blocked)
+def test_float_matrix_products_and_sums_are_exact_in_double(table, matrix, bound):
+    """The input ranges of kernels A and F: the forward product takes
+    residuals |e| <= 255, the inverse dequantized values |iq| < 2^15."""
+    rng = np.random.default_rng(matrix)
+    ints = [bound, -bound, 255, -255, 1, -1] + rng.integers(-bound, bound + 1, 8).tolist()
+    m = _matrices(table)[matrix]
+    for e in np.unique(m):   # every entry, once per distinct value
+        for v in ints:
+            assert Fraction(float(np.float64(e) * v)) == Fraction(float(e)) * v
+    # each entry a multiple of 2^-29 and each row's absolute sum below 9:
+    # every partial sum of 64 such products is a multiple of 2^-29 below
+    # 9 * 2^15 < 2^19, 48 bits, so exact in double in any order
+    m64 = m.astype(np.float64)
+    assert np.all(np.floor(m64 * 2.0 ** 29) == m64 * 2.0 ** 29)
+    assert np.abs(m64).sum(axis=1).max() < 9
+    v = rng.integers(-bound, bound + 1, (64, 256)).astype(np.float64)
+    v[:, 0] = bound   # the largest sums
+    seq = m64[:, 0, None] * v[0]
+    for k in range(1, 64):         # index order, as dense_f64 summed
+        seq = seq + m64[:, k, None] * v[k]
+    blocked = sum(m64[:, k::4] @ v[k::4] for k in range(4))   # an mma-like order
+    assert np.array_equal(seq, m64 @ v) and np.array_equal(seq, blocked)
+    exact = [sum(Fraction(float(m64[o, k])) * int(v[k, 0]) for k in range(64)) for o in (0, 9, 63)]
+    assert [Fraction(float(seq[o, 0])) for o in (0, 9, 63)] == exact
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -155,12 +163,21 @@ def test_large_calls_are_split_over_planes(nplanes, gh, gw):
 
 
 def test_plane_limits_match_the_kernel_and_refuse_taller_planes():
+    """The kernel's only plane limit is MAX_CELLS blocks: the DC walk takes
+    every height the header carries (8,190 block rows, 65,520 lines) in
+    bands of 32 * CHAIN_MAX_ROWS rows, so only a plane of more blocks than
+    one launch takes is refused."""
     src = (pathlib.Path(xform_fused.__file__).parent.parent / "csrc" / "xform_fwd.cu").read_text()
     assert re.search(r"MAX_CELLS = 1LL << (\d+);", src).group(1) == "25"
     assert 1 << 25 == xform_fused.MAX_CELLS
-    assert 32 * int(re.search(r"CHAIN_MAX_ROWS = (\d+);", src).group(1)) == \
-        xform_fused.MAX_BLOCK_ROWS
-    with pytest.raises(ValueError, match="block rows"):
-        xform_fused._plane_batches(1, xform_fused.MAX_BLOCK_ROWS + 1, 4)
-    with pytest.raises(ValueError, match="block rows"):
+    assert "gh > 32 * CHAIN_MAX_ROWS)" not in src    # no refusal of tall planes
+    max_rows = tables.parse_header(tables.pack_header(65520, 32, 16, 16, 1))[0] // 8
+    assert max_rows == 8190
+    widest = xform_fused.MAX_CELLS // max_rows
+    for gh, gw, want in ((540, 960, [(0, 2)]), (max_rows, 4, [(0, 2)]),
+                         (max_rows, widest, [(0, 1), (1, 2)])):
+        assert xform_fused._plane_batches(2, gh, gw) == want
+    with pytest.raises(ValueError, match="blocks"):
+        xform_fused._plane_batches(1, max_rows, widest + 1)
+    with pytest.raises(ValueError, match="blocks"):
         xform_fused._plane_batches(1, 2, xform_fused.MAX_CELLS)

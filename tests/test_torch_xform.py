@@ -9,8 +9,10 @@ blocks and a 2x3 grid of chroma blocks, the plain versions on the CPU.
   The two sum the same float32 products in another order, so a quantizer
   tie may flip: differing symbols are counted and held to 0.1%, and r is
   compared where the block's symbols agree;
-* the chroma chain of engine/intra.encode_chroma_batch through kernel F
-  (xform=True) equals its route through kernel B in float64.
+* the chroma chain of engine/intra.encode_chroma_batch, which runs through
+  kernel F, equals the batched route around kernel B's DC chain (fdct,
+  dc_fused.dc_dpcm_fused, quant_block, zigzag, ac_flag, dequant_block,
+  idct) in float64.
 """
 import jax
 import jax.numpy as jnp
@@ -25,7 +27,12 @@ from icspcodec_tpu.ops import quant as jq
 from icspcodec_tpu.ops import scanorder as jso
 from icspcodec_tpu.ops import transforms as jtr
 from icspcodec_tpu.ops.pallas_xform import xform_fwd_fused as j_xform
+from icspcodec_torch import constants as tconst
 from icspcodec_torch.engine.intra import encode_chroma_batch
+from icspcodec_torch.ops.dc_fused import dc_dpcm_fused
+from icspcodec_torch.ops.quant import ac_flag, dequant_block, quant_block
+from icspcodec_torch.ops.scanorder import zigzag
+from icspcodec_torch.ops.transforms import fdct, idct
 from icspcodec_torch.ops.xform_fused import xform_fwd_fused
 from icspcodec_torch.tables import chroma_dc_kind, luma_dc_kind
 
@@ -95,8 +102,14 @@ def test_float32_within_ties_of_the_pallas_kernel(chroma):
 @pytest.mark.parametrize("qdc,qac", [(16, 16), (8, 4)])
 def test_chroma_chain_through_kernel_f_equals_the_intra_route(qdc, qac):
     blocks = torch.from_numpy(_blocks(True, seed=9))
-    a = encode_chroma_batch(blocks, qdc, qac, dtype=torch.float64, xform=True)
-    b = encode_chroma_batch(blocks, qdc, qac, dtype=torch.float64)
+    a = encode_chroma_batch(blocks, qdc, qac, dtype=torch.float64)
+    d = fdct(blocks.to(torch.int32), dtype=torch.float64)
+    q_dc, dq_dc = dc_dpcm_fused(d[..., 0, 0], qdc, chroma=True)
+    q = quant_block(d, qdc, qac, chroma=True)
+    q[..., 0, 0] = q_dc
+    iq = dequant_block(q, qdc, qac)
+    iq[..., 0, 0] = dq_dc
+    b = dict(scan=zigzag(q), acflag=ac_flag(q), idct=idct(iq, tconst.COS_ENC, dtype=torch.float64))
     assert torch.equal(a["scan"].to(torch.int32), b["scan"].to(torch.int32))
     assert torch.equal(a["acflag"].to(torch.int32), b["acflag"].to(torch.int32))
     assert torch.equal(a["idct"], b["idct"])
