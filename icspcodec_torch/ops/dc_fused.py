@@ -6,7 +6,10 @@ idc_dpcm_fused.  On a CPU tensor each wrapper runs its plain version
 (engine/wavefront.dc_dpcm_scan / idc_dpcm_scan); on a CUDA tensor it
 launches its kernel or raises.  B is bit-identical to its plain version in
 float32 and float64; B' is all integer, so bit-identical too.  Each kernel
-has its own launch counter.
+has its own launch counter.  The C launchers choose the layout from the
+plane's size and the card's opt-in shared memory (B' stages a plane in
+shared memory where it fits, else walks it by the ring of B), and take
+planes of every height the header carries.
 """
 from __future__ import annotations
 

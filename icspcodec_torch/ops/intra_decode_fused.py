@@ -5,10 +5,10 @@ Counterpart of icspcodec_tpu/ops/pallas_intra.py::intra_luma_decode_fused.
 On a CPU tensor the wrapper runs the plain version (the JAX engine's XLA
 branch: inverse zig-zag, dequantization, wavefront.idc_dpcm_scan, the
 inverse DCT, wavefront.intra_luma_decode_scan_packed); on a CUDA tensor it
-launches the kernel or raises.  float64 is bit-identical to the plain
-version; float32 takes the separable transform where the plain version on
-the card sums the 64x64 product in float64, so a pixel on a truncation
-boundary may differ by one (chip_smoke.py counts the differences).
+launches the kernel or raises.  Both precisions are bit-identical to the
+plain version: float32 sums the AC part of the plain version's 64x64
+product in double over the nonzero AC values and adds the DC's exact share,
+dq / 8 (csrc/intra_decode.cu, "Precision").
 
 The wrapper hands the kernel a global scratch ring of RING_ROW_BYTES a
 block row; the kernel keeps its ring of boundary state in shared memory
@@ -22,9 +22,9 @@ import ctypes
 import numpy as np
 import torch
 
-from ..constants import COS_DEC, IRT2, IZIGZAG
+from ..constants import COS_DEC, IRT2, IZIGZAG, ZIGZAG
 from ..engine.wavefront import idc_dpcm_scan, intra_luma_decode_scan_packed
-from ..tables import TABLES, luma_dc_kind, table_key
+from ..tables import TABLES, idct_matrix, luma_dc_kind, table_key
 from .quant import dequant_block
 from .scanorder import izigzag
 from .transforms import idct
@@ -45,12 +45,39 @@ def _lib():
     return fn
 
 
+def _occupancy_fn():
+    fn = _build.load("intra_decode").icsp_intra_decode_occupancy
+    if fn.argtypes is None:
+        i = ctypes.c_int
+        fn.argtypes = [i, i, i, ctypes.POINTER(i)]
+        fn.restype = i
+    return fn
+
+
+def resident_ctas(gh: int, gw: int, dtype=torch.float32) -> int:
+    """CTAs of kernel C (one a frame) that one SM of the current card holds
+    at once for a (gh, gw) block grid, as the kernel is launched."""
+    out = ctypes.c_int(0)
+    _build.check(_occupancy_fn()(int(dtype == torch.float64), gh, gw, ctypes.byref(out)),
+                 "intra_decode occupancy")
+    return out.value
+
+
+def kernel_table(key: str, dtype: torch.dtype) -> np.ndarray:
+    """The kernel's transform table: float32, the 64x64 inverse matrix with
+    its columns in scan order (row k holds column ZIGZAG[k], the weights of
+    scan symbol k); float64, the cosine table then IRT2."""
+    if dtype == torch.float32:
+        return np.ascontiguousarray(idct_matrix(key, "float32")[:, ZIGZAG].T)
+    return np.concatenate([np.asarray(TABLES[key], np.float64).ravel(), [IRT2]])
+
+
 def _tables(key: str, dtype: torch.dtype, gh: int, gw: int, device):
-    """Device copies of the kernel's constants: the cosine table then IRT2
-    in the working type, the inverse zig-zag and the luma DC kind grid."""
+    """Device copies of the kernel's constants: kernel_table, the inverse
+    zig-zag and the luma DC kind grid."""
     ck = (key, dtype, gh, gw, str(device))
     if ck not in _consts:
-        tabs = np.concatenate([np.asarray(TABLES[key], np.float64).ravel(), [IRT2]])
+        tabs = kernel_table(key, dtype)
         _consts[ck] = (torch.from_numpy(tabs).to(device=device, dtype=dtype),
                        torch.from_numpy(IZIGZAG.astype(np.int32)).to(device),
                        torch.from_numpy(luma_dc_kind(gh, gw)).to(device))
@@ -109,6 +136,8 @@ def intra_luma_decode_fused(y_scan: torch.Tensor, mpm: torch.Tensor, mode_bit: t
         raise TypeError(f"dtype must be float32 or float64, got {dtype}")
     dev = y_scan.device
     sc, mp, mb = (t.contiguous() for t in (y_scan, mpm, mode_bit))
+    if sc.data_ptr() % 16:   # the kernel loads symbols 16 bytes at a time
+        sc = sc.clone()
     tabs, izz, kind = _tables(table_key(table), dtype, gh, gw, dev)
     plane = torch.empty((fdim, gh * 8, gw * 8), dtype=torch.uint8, device=dev)
     if fdim == 0:

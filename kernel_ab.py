@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Device times of kernels A and C for two checkouts of the port, in one call.
+"""Device times of kernels A, B' and C for two checkouts of the port, in one call.
 
     python3 kernel_ab.py OTHER_CHECKOUT [--out FILE]
 
@@ -10,9 +10,13 @@ into its own build/), makes 300 CIF frames of benchA (tools/make_content.py),
 and reads with torch.profiler the device ms per call of kernel A
 (intra_luma_scan_fused at QP 16/16, float32 and float64) and of kernel C
 (intra_luma_decode_fused of A's float32 symbols, float32 and float64), as
-chip_smoke.py's device_profile reads them.  Prints the card's name and power
-limit, then one JSON line of the four runs; --out also writes that line to
-FILE.  Needs one CUDA card.
+chip_smoke.py's device_profile reads them; and of kernel B' (idc_dpcm_fused)
+on three shapes of the decode: the CIF300 chroma batch (600 planes of
+18x22, the all-intra decode's one launch) and one P-step's luma (30 planes
+of 36x44) and chroma (60 planes of 18x22), the residuals A's float32 DC
+symbols times 16.  Prints the card's name and power limit, then one JSON
+line of the four runs; --out also writes that line to FILE.  Needs one
+CUDA card.
 """
 from __future__ import annotations
 
@@ -39,13 +43,13 @@ def child(root: pathlib.Path) -> dict:
     import torch
 
     import icspcodec_torch
-    from icspcodec_torch.ops import _build, intra_decode_fused, intra_fused
+    from icspcodec_torch.ops import _build, dc_fused, intra_decode_fused, intra_fused
 
     pkg = pathlib.Path(icspcodec_torch.__file__).resolve()
     if root not in pkg.parents:
         raise RuntimeError(f"icspcodec_torch came from {pkg}, not from {root}")
     cs = _smoke()
-    _build.build(["intra_luma", "intra_decode"])
+    _build.build(["intra_luma", "intra_decode", "dc_dpcm"])
     dev = torch.device("cuda")
     y, _, _ = cs.cif_content(cs.NF)
     yt = torch.from_numpy(y).to(dev)
@@ -59,6 +63,15 @@ def child(root: pathlib.Path) -> dict:
         out[f"C_{name}_device_ms"] = cs.device_profile(
             lambda: intra_decode_fused.intra_luma_decode_fused(
                 k["scan"], k["mpm"], k["mode_bit"], 16, 16, dtype=dtype), 5)["device_ms"]
+    # B' residuals: DC symbols of A's luma, and of the chroma-sized corners of
+    # its planes, times the DC quantizer
+    iq_l = k["scan"][..., 0].to(torch.int32) * 16
+    iq_c = iq_l[:, :18, :22].repeat(2, 1, 1).contiguous()
+    for name, iq, chroma in (("cif300_chroma", iq_c, True), ("p_step_luma", iq_l[:30].contiguous(),
+                                                              False),
+                             ("p_step_chroma", iq_c[:60].contiguous(), True)):
+        out[f"Bi_{name}_device_ms"] = cs.device_profile(
+            lambda: dc_fused.idc_dpcm_fused(iq, chroma), 20)["device_ms"]
     return out
 
 
