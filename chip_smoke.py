@@ -111,11 +111,29 @@ JAX package's output.  Phases, each of which fails the run:
               `python -m icspcodec_torch.cli encode` and `decode --orig` as
               subprocesses on a CIF300 .yuv file: phase 10's bytes, and the
               printed PSNR-Y within 0.05 dB of phase 10's recon; wall times
+ 17. shards   gop_shards=2 over the device list ["cuda:0"] * 2, CIF300 fast:
+              codec.encode at period 10 gives phase 10's bytes and recon,
+              all-intra phase 4's, codec.decode of phase 10's stream phase
+              12's planes, encode_streaming phase 10's bytes; kernels A, D,
+              E and F (encode) and C, B' and E (decode) launched in both
+              shards (launch counters); device=None on a one-card machine
+              raises ValueError; each call timed beside its unsharded phase,
+              with the device busy share of the sharded period-10 encode
+ 18. tiles    tile_shards=2 (CIF's 22 MB columns) over ["cuda:0"] * 2: exact
+              mode on 10 CIF frames at period 10 gives the untiled bytes,
+              recon and planes, the encode launching kernel F as often as
+              the untiled one; synthA QP 16/16 at period 1 (32 frames)
+              through the tiled encode and decode gives the C++ reference's
+              three hashes; fast mode on 30 frames gives the untiled bytes,
+              recon and decoded planes, timed beside the untiled
+ 19. oracle   icspcodec_torch.oracle (host numpy) encodes the XCHECK input
+              to the pinned stream and decodes it to the pinned planes
 
 Prints a JSON `kernels` line (each kernel's event time `ms` and the
 profiler's device time `device_ms` per call of the same function; kernels
 A and C also their device time per diagonal, C its resident CTAs an SM, B'
-its device time on the three shapes a decode gives it), the
+its device time on the three shapes a decode gives it; every kernel also
+its launches in phase 17's sharded calls and phase 18's tiled ones), the
 card's name and power limit, and as its last line {"ok": true, "device":
 {...}}.  Exits non-zero, printing no result, without a CUDA device.
 """
@@ -1506,6 +1524,156 @@ def main() -> int:
                                               encode_line=enc_out, decode_lines=dec_out)),
           flush=True)
 
+    # ---- 17. GOP shards on the card ---------------------------------------
+    # two shards on the one card (a device list naming it twice): each shard
+    # runs its engine, with its kernels, from a thread of its own; the host
+    # writer packs (the sharded path's entropy gating, as the JAX package's)
+    mesh2 = ["cuda:0"] * 2
+    cfg10s = CodecConfig(width=W, height=H, qp_dc=16, qp_ac=16, intra_period=period,
+                         precision="fast", gop_shards=2)
+    cfg0s = CodecConfig(width=W, height=H, qp_dc=16, qp_ac=16, precision="fast", gop_shards=2)
+    shard_runs = {}
+    for name, fn, want, alone in (
+            ("encode_period10", lambda: codec.encode(y, cb, cr, cfg10s, device=mesh2),
+             (bits10, rec10), launches_enc10),
+            ("encode_all_intra", lambda: codec.encode(y, cb, cr, cfg0s, device=mesh2),
+             (bits, rec), launches_enc),
+            ("decode_period10", lambda: codec.decode(bits10, NF, precision="fast", device=mesh2,
+                                                     gop_shards=2), dec10, launches_p10)):
+        reset_counts()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launched = counts()
+        if name.startswith("encode"):
+            check(got[0] == want[0], f"gop_shards=2 {name}: the bytes differ from the unsharded")
+            check(all(np.array_equal(got[1][n], want[1][n]) for n in want[1]),
+                  f"gop_shards=2 {name}: the recon differs from the unsharded")
+            need = ("A", "D", "E", "F") if "period10" in name else ("A", "F")
+        else:
+            check(all(np.array_equal(got[n], want[n]) for n in want),
+                  f"gop_shards=2 {name}: the planes differ from phase 12's")
+            need = ("C", "B'", "E")
+        # each shard launches what the unsharded call does (the counters
+        # are bumped from the shards' threads under a lock)
+        check(all(launched[n] == 2 * alone[n] >= 2 for n in need),
+              f"gop_shards=2 {name}: kernels {need} not launched as the unsharded call "
+              f"{alone} in each shard: {launched}")
+        shard_runs[name] = dict(first_call_ms=wall, launches=launched,
+                                ms=event_ms(fn, reps=1, warmup=0))
+    shard_runs["encode_period10"]["unsharded_ms_phase10"] = enc10_ms
+    shard_runs["encode_all_intra"]["unsharded_ms_phase4"] = enc_ms
+    shard_runs["decode_period10"]["unsharded_ms_phase12"] = p10_ms
+    prof_s = profile_run(lambda: codec.encode(y, cb, cr, cfg10s, device=mesh2),
+                         shard_runs["encode_period10"]["ms"])
+    shard_runs["encode_period10"]["device_busy_share"] = prof_s["busy_share"]
+    shard_runs["encode_period10"]["device_ms"] = prof_s["device_ms"]
+    with tempfile.TemporaryDirectory() as wd:
+        t0 = time.perf_counter()
+        got = encode_streaming(y, cb, cr, cfg10s, wd, metrics=MetricsLog(), device=mesh2)
+        swall = (time.perf_counter() - t0) * 1e3
+    check(got == bits10, "gop_shards=2 encode_streaming: the bytes differ from phase 10's")
+    shard_runs["stream_period10"] = dict(ms=swall, unsharded_ms_phase15=stream_ms)
+    if torch.cuda.device_count() == 1:
+        try:
+            codec.encode(y[:2], cb[:2], cr[:2], cfg10s)
+            refused = False
+        except ValueError as e:
+            refused = "devices are available" in str(e)
+        check(refused, "gop_shards=2 with device=None on a one-card machine did not raise "
+                       "ValueError")
+    print("gop_shards=2 on ['cuda:0'] * 2, CIF300 fast (phase 10's and 4's bytes, phase 12's "
+          "planes, streaming phase 10's bytes; device=None refused on one card): "
+          + json.dumps(shard_runs), flush=True)
+    launches_shard = {n: shard_runs[n]["launches"] for n in
+                      ("encode_period10", "encode_all_intra", "decode_period10")}
+
+    # ---- 18. MB-column tiles on the card ------------------------------------
+    # tile_shards=2 splits CIF's 22 MB columns over the device list; the
+    # tiled wavefronts are plain torch (as the JAX package's are plain XLA),
+    # the gathered forward residual chains run through kernel F as the
+    # untiled encode's do, the gathered inverse DC chains through kernel B',
+    # the tiles' union SADs through sad_union and their MC through kernel E
+    tiled = {}
+    n10 = period
+    clip = (y[:n10], cb[:n10], cr[:n10])
+    xt = dict(width=W, height=H, qp_dc=16, qp_ac=16, intra_period=period, precision="exact")
+    reset_counts()
+    want_b, want_r = codec.encode(*clip, CodecConfig(**xt))
+    untiled_f = counts()["F"]
+    want_d = codec.decode(want_b, n10, precision="exact")
+    reset_counts()
+    t0 = time.perf_counter()
+    tb, tr = codec.encode(*clip, CodecConfig(**xt, tile_shards=2), device=mesh2)
+    torch.cuda.synchronize()
+    tiled["exact_encode_ms"] = (time.perf_counter() - t0) * 1e3
+    tiled["exact_encode_launches"] = counts()
+    check(tb == want_b and all(np.array_equal(tr[n], want_r[n]) for n in want_r),
+          "tile_shards=2 exact encode (10 CIF frames, period 10): differs from the untiled")
+    reset_counts()
+    t0 = time.perf_counter()
+    td = codec.decode(want_b, n10, precision="exact", device=mesh2, tile_shards=2)
+    torch.cuda.synchronize()
+    tiled["exact_decode_ms"] = (time.perf_counter() - t0) * 1e3
+    tiled["exact_decode_launches"] = counts()
+    check(all(np.array_equal(td[n], want_d[n]) for n in want_d),
+          "tile_shards=2 exact decode (10 CIF frames, period 10): differs from the untiled")
+    check(tiled["exact_encode_launches"]["F"] == untiled_f >= 1
+          and tiled["exact_encode_launches"]["E"] >= 1
+          and tiled["exact_decode_launches"]["B'"] >= 1
+          and tiled["exact_decode_launches"]["E"] >= 1,
+          f"the tiled paths did not launch F (as often as the untiled encode, {untiled_f}), "
+          f"E and B': {tiled}")
+    # the C++ reference's hashes through the tiled encode and decode
+    gy, gcb, gcr = cif_content(32, "synthA")
+    gb, grec = codec.encode(gy, gcb, gcr, CodecConfig(width=W, height=H, qp_dc=16, qp_ac=16,
+                                                      intra_period=1, precision="exact",
+                                                      tile_shards=2), device=mesh2)
+    gdec = codec.decode(gb, 32, precision="exact", device=mesh2, tile_shards=2)
+    check(hashlib.sha256(gb).hexdigest() == manifest["synthA_compCIF_16_16_1.bin"]
+          and yuv_sha256(grec) == manifest["synthA_16_16_1.encrecon.yuv"]
+          and yuv_sha256(gdec) == manifest["synthA_16_16_1.decrecon.yuv"],
+          "golden synthA_16_16_1 through tile_shards=2: differs from the C++ reference's hashes")
+    del gy, gcb, gcr, grec, gdec
+    n30 = 3 * period
+    fclip = (y[:n30], cb[:n30], cr[:n30])
+    fcfg = dict(width=W, height=H, qp_dc=16, qp_ac=16, intra_period=period, precision="fast")
+    fb, fr = codec.encode(*fclip, CodecConfig(**fcfg, entropy="host"))
+    fbt, frt = codec.encode(*fclip, CodecConfig(**fcfg, tile_shards=2), device=mesh2)
+    check(fbt == fb and all(np.array_equal(frt[n], fr[n]) for n in fr),
+          "tile_shards=2 fast encode of 30 CIF frames: differs from the untiled")
+    fd = codec.decode(fb, n30, precision="fast")
+    fdt = codec.decode(fbt, n30, precision="fast", device=mesh2, tile_shards=2)
+    check(all(np.array_equal(fdt[n], fd[n]) for n in fd),
+          "tile_shards=2 fast decode of 30 CIF frames: differs from the untiled")
+    tiled["fast_encode_ms"] = event_ms(lambda: codec.encode(
+        *fclip, CodecConfig(**fcfg, tile_shards=2), device=mesh2), reps=1, warmup=0)
+    tiled["fast_decode_ms"] = event_ms(lambda: codec.decode(
+        fbt, n30, precision="fast", device=mesh2, tile_shards=2), reps=1, warmup=0)
+    tiled["untiled_fast_encode_ms"] = event_ms(lambda: codec.encode(
+        *fclip, CodecConfig(**fcfg)), reps=1)
+    tiled["untiled_fast_decode_ms"] = event_ms(lambda: codec.decode(
+        fb, n30, precision="fast"), reps=1)
+    print("tile_shards=2 on ['cuda:0'] * 2 (exact, 10 CIF frames at period 10: the untiled bytes "
+          "and planes; golden synthA_16_16_1 through the tiled encode and decode: the C++ "
+          "hashes; fast, 30 frames: the untiled bytes, recon and decoded planes, timed): "
+          + json.dumps(tiled), flush=True)
+    del clip, fclip, fr, frt, fd, fdt, tr, td
+
+    # ---- 19. the oracle (host numpy) ----------------------------------------
+    from icspcodec_torch import oracle
+    t0 = time.perf_counter()
+    ob = oracle.encode(list(zip(*xcheck_input())), XCHECK_CFG["qp_dc"], XCHECK_CFG["qp_ac"],
+                       0)[0]
+    od = oracle.decode(ob, 2)
+    check(hashlib.sha256(ob).hexdigest() == XCHECK_SHA256,
+          "the port's oracle does not give the pinned XCHECK stream")
+    check(planes_digest({k: np.stack([getattr(r, k) for r in od]) for k in ("y", "cb", "cr")})
+          == XCHECK_DECODE_SHA256, "the port's oracle decode does not give the pinned digest")
+    print(f"oracle: XCHECK stream and decoded planes equal the pinned digests "
+          f"({(time.perf_counter() - t0) * 1e3:.1f} ms on the host)", flush=True)
+
     kernels = [
         dict(name="intra_luma_wavefront", route="cuda",
              source="icspcodec_torch/csrc/intra_luma.cu",
@@ -1622,6 +1790,17 @@ def main() -> int:
                    "canonical rows followed by G's; times are one P-step (30 CIF frames)",
              path="unfused search (G's entry point at all 129 union offsets)"),
     ]
+    # which paths of this slice launch each kernel: the three GOP-sharded
+    # calls of phase 17 and the tiled exact encode and decode of phase 18
+    counter = {"intra_luma_wavefront": "A", "dc_dpcm_forward": "B", "dc_dpcm_inverse": "B'",
+               "intra_luma_decode_wavefront": "C", "mc_gather": "E", "sad_mc_best": "D",
+               "xform_fwd": "F", "sad_union_extra": "G", "sad_best": "sad_best",
+               "sad_union": "sad_union"}
+    for k in kernels:
+        c = counter[k["name"]]
+        k["launches_gop_shards"] = {n: v[c] for n, v in launches_shard.items()}
+        k["launches_tiles"] = {"encode": tiled["exact_encode_launches"][c],
+                               "decode": tiled["exact_decode_launches"][c]}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

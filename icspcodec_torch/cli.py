@@ -12,6 +12,11 @@ Encoder (reference: parsing_command, enc src:94-165):
 Decoder (reference decoder CLI: ./decoder N file.bin QPDC QPAC period orig.yuv):
   python -m icspcodec_torch.cli decode -i file.bin -n 32 [-o out.yuv] \\
       [--orig seq_cif.yuv]   # prints mean Y-PSNR like the reference harness
+
+--gopShards N / --tileShards N split the GOPs / each frame's MB columns over
+the first N CUDA devices (codec.encode and codec.decode); from Python,
+main(argv, device=[...]) gives the device list, which may name one device
+more than once.
 """
 from __future__ import annotations
 
@@ -42,13 +47,13 @@ def _parser() -> argparse.ArgumentParser:
     enc.add_argument("--precision", choices=["exact", "fast"], default="exact")
     enc.add_argument(
         "--gopShards", type=int, default=1,
-        help="devices on the gop mesh axis (the --EnMultiThread analog, "
-             "enc src:150-157); not ported: values above 1 are refused",
+        help="split the closed GOPs over this many devices (the --EnMultiThread "
+             "analog, enc src:150-157); bytes identical at any count",
     )
     enc.add_argument(
         "--tileShards", type=int, default=1,
-        help="devices on the spatial tile mesh axis; not ported: values "
-             "above 1 are refused",
+        help="split each frame's MB columns over this many devices, with halo "
+             "exchange at the seams; must divide width/16; bytes identical",
     )
     enc.add_argument(
         "--entropy", choices=["auto", "device", "host"], default="auto",
@@ -66,19 +71,21 @@ def _parser() -> argparse.ArgumentParser:
     dec.add_argument("--orig", default=None, help="original YUV for PSNR")
     dec.add_argument("--precision", choices=["exact", "fast"], default="exact")
     dec.add_argument("--gopShards", type=int, default=1,
-                     help="devices on the gop mesh axis; not ported: values above 1 "
-                          "are refused")
+                     help="split the GOPs over this many devices; planes identical")
     dec.add_argument("--tileShards", type=int, default=1,
-                     help="devices on the spatial tile mesh axis; not ported: values "
-                          "above 1 are refused")
+                     help="split each frame's MB columns over this many devices; planes "
+                          "identical")
     return ap
 
 
 def main(argv=None, device=None):
     """Run one sub-command.  device: where to run, as codec.encode takes it;
-    None means the CUDA card, and raises when there is none."""
+    None means the CUDA card (every CUDA device with --gopShards or
+    --tileShards above 1), and raises when there is none; a list of devices
+    is the shard list."""
     args = _parser().parse_args(argv)
-    dev = resolve_device(device)
+    sharded = args.gopShards > 1 or args.tileShards > 1
+    dev = device if sharded else resolve_device(device)
     if args.cmd == "encode":
         qdc = args.q if args.q is not None else args.qpdc
         qac = args.q if args.q is not None else args.qpac

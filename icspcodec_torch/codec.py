@@ -25,6 +25,13 @@ Two precision regimes (cfg.precision):
            so to the C++ reference encoder.  The H100's float64 is IEEE, so
            exact mode runs on the card.
   fast  -- float32; identical structure, a quantizer rounding tie may flip.
+
+Sharding, as in the JAX package, over a list of devices: cfg.gop_shards > 1
+splits the GOP batches over the list (parallel/gop.py: each shard runs the
+engines above, with their kernels, on its device) and cfg.tile_shards > 1
+splits each frame's MB columns over it (parallel/tiles.py: the tiled
+wavefronts with halo exchange).  Both write with the host writer, and give
+the unsharded bytes and planes at any shard count.
 """
 from __future__ import annotations
 
@@ -45,14 +52,17 @@ _INTRA_KEYS = ("y_scan", "y_acflag", "mpm", "mode_bit",
 _INTER_KEYS = ("y_scan", "y_acflag", "mv_diff", "cb_scan", "cb_acflag", "cr_scan", "cr_acflag")
 _DEC_INTRA_KEYS = ("y_scan", "mpm", "mode_bit", "cb_scan", "cr_scan")
 _DEC_INTER_KEYS = ("y_scan", "mv_diff", "cb_scan", "cr_scan")
-_SHARDING = ("gop_shards / tile_shards > 1: GOP batching and sharding are not ported "
-             "yet (ROADMAP.md queue 1 item 11)")
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device to run on: the given one, else the current CUDA device.
-    With no GPU and no device given this raises rather than falling back to
-    the CPU, where the plain versions stand in for the kernels."""
+    """The device to run on: the given one (the first of a list), else the
+    current CUDA device.  With no GPU and no device given this raises
+    rather than falling back to the CPU, where the plain versions stand in
+    for the kernels."""
+    if isinstance(device, (list, tuple)):
+        if not device:
+            raise ValueError("the device list is empty")
+        device = device[0]
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
@@ -61,11 +71,27 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def shard_mesh(gop_shards: int, tile_shards: int, device=None):
+    """The device list of a sharded run, or None for an unsharded one.
+    device: a list of devices, one per shard (it may name one device more
+    than once), or None for every CUDA device; a single device raises."""
+    if gop_shards > 1 and tile_shards > 1:
+        raise ValueError("gop_shards and tile_shards are mutually exclusive")
+    if gop_shards == 1 and tile_shards == 1:
+        return None
+    axis, shards = ("gop", gop_shards) if gop_shards > 1 else ("tile", tile_shards)
+    if device is not None and not isinstance(device, (list, tuple)):
+        raise ValueError(f"{axis}_shards={shards} runs over a list of devices, one per shard: "
+                         f"pass device=[{str(device)!r}] * {shards} (or None for every CUDA "
+                         f"device), not the single device {device!r}")
+    from .parallel.gop import mesh_for
+
+    return mesh_for(shards, device, axis)
+
+
 def _check_supported(cfg: CodecConfig) -> None:
     if cfg.intra_period < 0:
         raise ValueError(f"intra_period must be >= 0, got {cfg.intra_period}")
-    if cfg.gop_shards > 1 or cfg.tile_shards > 1:
-        raise NotImplementedError(_SHARDING)
     if cfg.precision not in ("exact", "fast"):
         raise ValueError(f"precision must be exact|fast, got {cfg.precision!r}")
 
@@ -116,47 +142,78 @@ def _acflag(scan: np.ndarray) -> np.ndarray:
 
 
 def host_symbols(syms: dict | None) -> dict | None:
-    """Symbol tensors pulled to numpy for the host writer, with y_acflag
-    computed on the host from y_scan, as the JAX package's host route does."""
+    """Symbol tensors (or numpy arrays) pulled to numpy for the host writer,
+    with y_acflag computed on the host from y_scan, as the JAX package's host
+    route does."""
     if syms is None:
         return None
-    out = {k: v.cpu().numpy() for k, v in syms.items() if k != "y_acflag"}
+    out = {k: np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
+           for k, v in syms.items() if k != "y_acflag"}
     out["y_acflag"] = _acflag(out["y_scan"])
     return out
 
 
+def gop_spans(nf: int, eff: int) -> list[tuple[int, int, int]]:
+    """The GOP batches of nf frames at an effective intra period eff, as
+    (first frame, G, P): the full GOPs as one (G, P) batch and a shorter
+    last GOP as another (P = 1: intra only); all-intra is one (nf, 1)."""
+    nfull, rem = divmod(nf, eff)
+    return ([(0, nfull, eff)] if nfull else []) + ([(nfull * eff, 1, rem)] if rem else [])
+
+
+def _engines(cfg: CodecConfig, return_recon: bool, mesh):
+    """(intra, gop): the encode engines for planes on one device, each
+    returning its dicts of tensors on one device.  intra(y, cb, cr) encodes
+    (F, ...) intra frames (engine/intra.encode_intra_frames), gop(y, cb,
+    cr) a (G, P, ...) batch of closed GOPs (engine/inter.encode_gop).  With
+    a device list `mesh`, their sharded counterparts: GOP shards
+    (cfg.gop_shards > 1, parallel/gop.py) or MB column tiles
+    (cfg.tile_shards > 1, parallel/tiles.py), gathered on mesh[0]."""
+    dtype = torch.float64 if cfg.precision == "exact" else torch.float32
+    q = (cfg.qp_dc, cfg.qp_ac)
+    if mesh is None:
+        return (lambda y, cb, cr: encode_intra_frames(y, cb, cr, *q, table=COS_ENC, dtype=dtype,
+                                                      return_recon=return_recon),
+                lambda y, cb, cr: encode_gop(y, cb, cr, *q, table=COS_ENC, dtype=dtype))
+    if cfg.tile_shards > 1:
+        from .parallel import tiles
+
+        return (lambda y, cb, cr: tiles.encode_intra_frames_tiled(y, cb, cr, *q, mesh,
+                                                                  dtype=dtype),
+                lambda y, cb, cr: tiles.encode_gop_tiled(y, cb, cr, *q, mesh, dtype=dtype))
+    from .parallel import gop
+
+    return (lambda y, cb, cr: gop.encode_intra_padded(y, cb, cr, *q, mesh, dtype=dtype),
+            lambda y, cb, cr: gop.encode_gops_padded(y, cb, cr, *q, mesh, dtype=dtype))
+
+
 def encode_symbols(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor, cfg: CodecConfig,
-                   return_recon: bool = True):
+                   return_recon: bool = True, mesh=None):
     """The engines' half of encode(): planes (F, ...) uint8 on one device ->
     (intra, inter, recon).  intra = (symbols, display indexes) of the intra
     frames; inter likewise for the P-frames, or None; symbols are dicts of
     (n, ...) tensors on the device, as write_stream takes them.  recon: dict
-    of (F, ...) uint8 planes on the device, or None.
+    of (F, ...) uint8 planes on the device, or None.  mesh: a device list
+    (codec.shard_mesh) to shard the engines over, the results gathered on
+    mesh[0], or None.
 
     GOPs are batched as the JAX package batches them: the full GOPs as one
     (G, P) batch, a shorter last GOP as another; a one-frame last GOP is
     intra only."""
-    dtype = torch.float64 if cfg.precision == "exact" else torch.float32
+    intra_fn, gop_fn = _engines(cfg, return_recon, mesh)
     nf, eff = y.shape[0], cfg.eff_period
-    q = (cfg.qp_dc, cfg.qp_ac)
     if eff == 1:
-        out = encode_intra_frames(y, cb, cr, *q, table=COS_ENC, dtype=dtype,
-                                  return_recon=return_recon)
+        out = intra_fn(y, cb, cr)
         rec = {k: out[f"recon_{k}"] for k in ("y", "cb", "cr")} if return_recon else None
         return ({k: out[k] for k in _INTRA_KEYS}, np.arange(nf)), None, rec
-    nfull, rem = divmod(nf, eff)
-    spans = ([(0, nfull, eff)] if nfull else []) + ([(nfull * eff, 1, rem)] if rem else [])
     isyms, iidx, psyms, pidx = [], [], [], []
-    for start, g, p in spans:
+    for start, g, p in gop_spans(nf, eff):
         idx = np.arange(start, start + g * p).reshape(g, p)
         if p == 1:
-            intra = encode_intra_frames(y[start:start + 1], cb[start:start + 1],
-                                        cr[start:start + 1], *q, table=COS_ENC, dtype=dtype,
-                                        return_recon=return_recon)
-            inter = None
+            intra, inter = intra_fn(*(a[start:start + 1] for a in (y, cb, cr))), None
         else:
-            batch = [a[start:start + g * p].reshape((g, p) + a.shape[1:]) for a in (y, cb, cr)]
-            intra, inter = encode_gop(*batch, *q, table=COS_ENC, dtype=dtype)
+            intra, inter = gop_fn(*(a[start:start + g * p].reshape((g, p) + a.shape[1:])
+                                    for a in (y, cb, cr)))
         isyms.append(intra)
         iidx.append(idx[:, 0])
         if inter is not None:
@@ -174,6 +231,10 @@ def encode_symbols(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor, cfg: Cod
     return (cat(isyms, _INTRA_KEYS), np.concatenate(iidx)), inter, rec
 
 
+def _host(tree):
+    return None if tree is None else {k: v.cpu().numpy() for k, v in tree.items()}
+
+
 def encode(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, cfg: CodecConfig,
            return_recon: bool = True, device=None):
     """y: (F, H, W) uint8; cb/cr: (F, H/2, W/2) uint8.  Returns (bitstream
@@ -186,17 +247,32 @@ def encode(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, cfg: CodecConfig,
     cfg.entropy: "auto" and "device" entropy-code and pack on the device and
     pull only the packed frames; "host" pulls the symbols and packs them
     with the numpy writer.  The bytes are the same.
+
+    cfg.gop_shards > 1 splits the GOP batches over a list of devices
+    (parallel/gop.py; the --EnMultiThread analog, reference enc src:150-157
+    and ICSP_thread.cpp:39-77) and cfg.tile_shards > 1 splits each frame's
+    MB columns over it (parallel/tiles.py).  Then device is that list, one
+    device per shard (it may name one device more than once), or None for
+    every CUDA device; a single device raises ValueError, as do fewer
+    devices than shards.  The sharded paths write with the host writer
+    (entropy="device" raises ValueError there) and give the unsharded bytes
+    and recon at any shard count.
     """
     _check_supported(cfg)
-    dev = resolve_device(device)
     if y.shape[0] == 0:
         raise ValueError("need at least one frame")
+    mesh = shard_mesh(cfg.gop_shards, cfg.tile_shards, device)
+    if cfg.entropy == "device" and mesh is not None:
+        raise ValueError("entropy='device' requires the unsharded path "
+                         "(gop_shards == tile_shards == 1); use entropy='auto'")
+    dev = resolve_device(device) if mesh is None else mesh[0]
     yt, cbt, crt = (torch.from_numpy(np.ascontiguousarray(a, np.uint8)).to(dev)
                     for a in (y, cb, cr))
-    (isyms, iidx), inter, rec = encode_symbols(yt, cbt, crt, cfg, return_recon)
+    (isyms, iidx), inter, rec = encode_symbols(yt, cbt, crt, cfg, return_recon, mesh)
     psyms, pidx = inter if inter is not None else (None, None)
     args = (y.shape[0], cfg.height, cfg.width, cfg.qp_dc, cfg.qp_ac, cfg.intra_period)
-    if cfg.entropy == "host":
+    # the sharded paths write with the host writer, as the JAX package's do
+    if cfg.entropy == "host" or mesh is not None:
         bits = write_bitstream_grouped(host_symbols(isyms), iidx, host_symbols(psyms), pidx,
                                        *args)
     else:
@@ -241,6 +317,46 @@ def decode_gop(sym_i: dict, sym_p: dict, qdc: int, qac: int, dtype=torch.float64
     return first, rest
 
 
+def _decode_sharded(syms: dict, nframes: int, eff: int, qdc: int, qac: int, dtype, mesh,
+                    tiled: bool) -> dict:
+    """decode() over a device list: GOP shards, or MB column tiles when
+    `tiled`; the GOPs batched as the JAX package batches them (the full
+    GOPs, then a shorter last one)."""
+    if tiled:
+        from .parallel import tiles
+
+        def intra_fn(sym):
+            return _host(tiles.decode_intra_frames_tiled(sym, qdc, qac, mesh, dtype=dtype))
+
+        def gop_fn(sym_i, sym_p):
+            return tuple(map(_host, tiles.decode_gop_tiled(sym_i, sym_p, qdc, qac, mesh,
+                                                           dtype=dtype)))
+    else:
+        from .parallel import gop
+
+        def intra_fn(sym):
+            return _host(gop.decode_intra_padded(sym, qdc, qac, mesh, dtype=dtype))
+
+        def gop_fn(sym_i, sym_p):
+            return tuple(map(_host, gop.decode_gops_padded(sym_i, sym_p, qdc, qac, mesh,
+                                                           dtype=dtype)))
+
+    out = {}
+    for start, g, p in gop_spans(nframes, eff):
+        idx = np.arange(start, start + g * p).reshape(g, p)
+        sym_i = {k: syms[k][idx[:, 0]] for k in _DEC_INTRA_KEYS}
+        if p == 1:
+            first, rest = intra_fn(sym_i), None
+        else:
+            first, rest = gop_fn(sym_i, {k: syms[k][idx[:, 1:]] for k in _DEC_INTER_KEYS})
+        for k, v in first.items():
+            plane = out.setdefault(k, np.zeros((nframes,) + v.shape[1:], np.uint8))
+            plane[idx[:, 0]] = v
+            if rest is not None:
+                plane[idx[:, 1:]] = rest[k]
+    return out
+
+
 def decode(data: bytes, nframes: int, precision: str = "exact", device=None,
            gop_shards: int = 1, tile_shards: int = 1):
     """Decode a bitstream of `nframes` frames; returns dict(y, cb, cr) of
@@ -249,18 +365,26 @@ def decode(data: bytes, nframes: int, precision: str = "exact", device=None,
     precision: "exact" (float64: the JAX package's exact planes, byte for
     byte) or "fast" (float32).  device: where to run; None means the CUDA
     card, and raises when there is none; device="cpu" runs the plain
-    versions of the kernels (the tests do)."""
-    if gop_shards > 1 or tile_shards > 1:
-        raise NotImplementedError(_SHARDING)
+    versions of the kernels (the tests do).
+
+    gop_shards > 1 decodes the GOP batches split over a list of devices
+    (parallel/gop.py), tile_shards > 1 each frame's MB columns split over
+    it (parallel/tiles.py; mutually exclusive with gop_shards).  device is
+    then that list, as codec.encode takes it.  The planes equal the
+    unsharded ones at any shard count; the reference decoder is serial, so
+    this has no referent and mirrors the encode-side sharding."""
     if precision not in ("exact", "fast"):
         raise ValueError(f"precision must be exact|fast, got {precision!r}")
     if nframes < 1:
         raise ValueError("need at least one frame")
-    dev = resolve_device(device)
+    mesh = shard_mesh(gop_shards, tile_shards, device)
+    dev = resolve_device(device) if mesh is None else None
     dtype = torch.float64 if precision == "exact" else torch.float32
     height, width, qdc, qac, period = parse_header(data[:14])
     syms = parse_body(data[14:], nframes, height, width, period)
     eff = 1 if period == 0 else period
+    if mesh is not None:
+        return _decode_sharded(syms, nframes, eff, qdc, qac, dtype, mesh, tile_shards > 1)
     keys = _DEC_INTRA_KEYS if eff == 1 else _DEC_INTRA_KEYS + ("mv_diff",)
     up = {k: torch.from_numpy(syms[k]).to(dev) for k in keys}
     if eff == 1:

@@ -1,8 +1,8 @@
 """Codec configuration (reference: cmd_options_t, enc hdr:41-50).
 
 A copy of the JAX package's CodecConfig, so that the port imports nothing
-of that package.  The port's codec.encode refuses the options it does not
-run yet (see codec.py).
+of that package.  gop_shards and tile_shards count the devices of the list
+that codec.encode / decode take as `device` (parallel/gop.py, tiles.py).
 """
 from __future__ import annotations
 

@@ -102,6 +102,70 @@ def idc_dpcm_scan(iq_dc: torch.Tensor, kind: np.ndarray):
     return dq
 
 
+def intra_encode_cells(cur, up_row, left_col, has_up, has_left, l_md, ul_md, u_md, kind,
+                       l_dc, ul_dc, u_dc, ur_dc, qdc: int, qac: int, table, dtype):
+    """One wavefront step of the intra luma encoder on N cells of F frames.
+
+    cur: (F, N, 8, 8) original blocks; up_row / left_col: (F, N, 8) the
+    bottom pixel row of the upper neighbour and the right pixel column of
+    the left one; has_up / has_left: (1, N) bool; l_md / ul_md / u_md: the
+    neighbours' intra modes and l_dc / ul_dc / u_dc / ur_dc their
+    dequantized DCs, (F, N) int32; kind: (1, N) DC predictor kinds.
+    Returns (rec (F, N, 8, 8) int32, mode, dequantized DC, q (F, N, 8, 8),
+    MPM flag (bool), remainder bit).  Shared by the single-device wavefront
+    and the tiled one (parallel/tiles.py), which gathers the neighbours
+    across tile seams."""
+    first = ~has_up & ~has_left
+    cur = cur.to(torch.int32)
+
+    # --- candidate residuals and SAEs ---
+    e0 = cur - up_row[..., None, :]
+    e1 = cur - left_col[..., :, None]
+    lsum = torch.where(has_left, left_col.sum(-1, dtype=torch.int32), 1024)
+    usum = torch.where(has_up, up_row.sum(-1, dtype=torch.int32), 1024)
+    d16 = 16 * cur - (lsum + usum)[..., None, None]
+    e2 = torch.sign(d16) * torch.div(d16.abs(), 16, rounding_mode="floor")
+    sae0 = e0.abs().sum((-2, -1))
+    sae1 = e1.abs().sum((-2, -1))
+    sae2 = e2.abs().sum((-2, -1))
+    mode_both = torch.where((sae0 <= sae1) & (sae0 <= sae2), 0,
+                            torch.where(sae1 <= sae2, 1, 2))
+    mode = torch.where(first, 2, torch.where(
+        has_up & has_left, mode_both,
+        torch.where(has_left, torch.where(sae2 > sae1, 1, 2),
+                    torch.where(sae2 > sae0, 0, 2)))).to(torch.int32)
+    m = mode[..., None, None]
+    err = torch.where(m == 0, e0, torch.where(m == 1, e1, e2))
+
+    # --- MPM flag / remainder bit ---
+    pred_mode = torch.where(has_up & has_left, median3(l_md, ul_md, u_md),
+                            torch.where(has_left, l_md, u_md))
+    flag = (mode == pred_mode) & ~first
+    bit = torch.where(flag | first, 0, torch.where(
+        pred_mode == 2, (mode == 1).to(torch.int32), (mode == 2).to(torch.int32)))
+
+    # --- transform chain ---
+    d = fdct(err, table=table, dtype=dtype)
+    dc_pred = _dc_pred(kind, l_dc, ul_dc, u_dc, ur_dc)
+    # the predictor is subtracted before the quantizer's +0.5, in the C
+    # order (d - pred) + 0.5
+    d[..., 0, 0] = d[..., 0, 0] - dc_pred.to(dtype)
+    q = quant_block(d, qdc, qac, chroma=False)
+    iq = dequant_block(q, qdc, qac)
+    iq[..., 0, 0] += dc_pred
+    r = idct(iq, table=table, dtype=dtype)
+
+    # --- pixel reconstruction ---
+    pred0 = torch.where(has_up[..., None, None], up_row[..., None, :].to(dtype),
+                        128.0).expand(r.shape)
+    pred1 = torch.where(has_left[..., None, None], left_col[..., :, None].to(dtype),
+                        128.0).expand(r.shape)
+    pv = ((lsum + usum).to(dtype) / 16.0)[..., None, None]
+    predsel = torch.where(m == 0, pred0, torch.where(m == 1, pred1, pv))
+    rec = torch.clamp(c_trunc(r + predsel), 0, 255)
+    return rec, mode, iq[..., 0, 0], q, flag, bit
+
+
 def intra_luma_scan_packed(orig: torch.Tensor, qdc: int, qac: int,
                            table=COS_ENC, dtype=torch.float64):
     """Encode one batch of intra luma planes along the wavefront.
@@ -132,70 +196,49 @@ def intra_luma_scan_packed(orig: torch.Tensor, qdc: int, qac: int,
     mbit = torch.zeros((fdim, gh, gw), **i32)
 
     for gy, gx, gyu, gxl, gxr in _diagonals(gh, gw, dev):
-        has_up = (gy > 0)[None]                       # (1, N)
-        has_left = (gx > 0)[None]
-        first = ~has_up & ~has_left
-        cur = orig[:, gy, gx].to(torch.int32)         # (F, N, 8, 8)
-        up_row = br[:, gyu, gx]                       # (F, N, 8)
-        left_col = rc[:, gy, gxl]
-
-        # --- candidate residuals and SAEs ---
-        e0 = cur - up_row[..., None, :]
-        e1 = cur - left_col[..., :, None]
-        lsum = torch.where(has_left, left_col.sum(-1, dtype=torch.int32), 1024)
-        usum = torch.where(has_up, up_row.sum(-1, dtype=torch.int32), 1024)
-        d16 = 16 * cur - (lsum + usum)[..., None, None]
-        e2 = torch.sign(d16) * torch.div(d16.abs(), 16, rounding_mode="floor")
-        sae0 = e0.abs().sum((-2, -1))
-        sae1 = e1.abs().sum((-2, -1))
-        sae2 = e2.abs().sum((-2, -1))
-        mode_both = torch.where((sae0 <= sae1) & (sae0 <= sae2), 0,
-                                torch.where(sae1 <= sae2, 1, 2))
-        mode = torch.where(first, 2, torch.where(
-            has_up & has_left, mode_both,
-            torch.where(has_left, torch.where(sae2 > sae1, 1, 2),
-                        torch.where(sae2 > sae0, 0, 2)))).to(torch.int32)
-        m = mode[..., None, None]
-        err = torch.where(m == 0, e0, torch.where(m == 1, e1, e2))
-
-        # --- MPM flag / remainder bit ---
-        l_md, u_md, ul_md = modes[:, gy, gxl], modes[:, gyu, gx], modes[:, gyu, gxl]
-        pred_mode = torch.where(has_up & has_left, median3(l_md, ul_md, u_md),
-                                torch.where(has_left, l_md, u_md))
-        flag = (mode == pred_mode) & ~first
-        bit = torch.where(flag | first, 0, torch.where(
-            pred_mode == 2, (mode == 1).to(torch.int32), (mode == 2).to(torch.int32)))
-
-        # --- transform chain ---
-        d = fdct(err, table=table, dtype=dtype)
-        dc_pred = _dc_pred(kind_g[gy, gx][None], dqdc[:, gy, gxl], dqdc[:, gyu, gxl],
-                           dqdc[:, gyu, gx], dqdc[:, gyu, gxr])
-        # the predictor is subtracted before the quantizer's +0.5, in the C
-        # order (d - pred) + 0.5
-        d[..., 0, 0] = d[..., 0, 0] - dc_pred.to(dtype)
-        q = quant_block(d, qdc, qac, chroma=False)
-        iq = dequant_block(q, qdc, qac)
-        iq[..., 0, 0] += dc_pred
-        r = idct(iq, table=table, dtype=dtype)
-
-        # --- pixel reconstruction ---
-        pred0 = torch.where(has_up[..., None, None], up_row[..., None, :].to(dtype),
-                            128.0).expand(r.shape)
-        pred1 = torch.where(has_left[..., None, None], left_col[..., :, None].to(dtype),
-                            128.0).expand(r.shape)
-        pv = ((lsum + usum).to(dtype) / 16.0)[..., None, None]
-        predsel = torch.where(m == 0, pred0, torch.where(m == 1, pred1, pv))
-        rec = torch.clamp(c_trunc(r + predsel), 0, 255)
-
+        rec, mode, dq_dc, q, flag, bit = intra_encode_cells(
+            orig[:, gy, gx], br[:, gyu, gx], rc[:, gy, gxl], (gy > 0)[None], (gx > 0)[None],
+            modes[:, gy, gxl], modes[:, gyu, gxl], modes[:, gyu, gx], kind_g[gy, gx][None],
+            dqdc[:, gy, gxl], dqdc[:, gyu, gxl], dqdc[:, gyu, gx], dqdc[:, gyu, gxr],
+            qdc, qac, table, dtype)
         recon[:, gy, gx] = rec
         rc[:, gy, gx] = rec[..., :, 7]
         br[:, gy, gx] = rec[..., 7, :]
         modes[:, gy, gx] = mode
-        dqdc[:, gy, gx] = iq[..., 0, 0]
+        dqdc[:, gy, gx] = dq_dc
         scanq[:, gy, gx] = zigzag(q)
         mpmf[:, gy, gx] = flag.to(torch.int32)
         mbit[:, gy, gx] = bit
     return dict(recon=recon, scan=scanq, mpm=mpmf, mode_bit=mbit)
+
+
+def intra_decode_cells(rr, up_row, left_col, has_up, has_left, l_md, ul_md, u_md, fl, bt,
+                       dtype):
+    """One wavefront step of the intra luma decoder on N cells of F frames.
+
+    rr: (F, N, 8, 8) inverse-DCT blocks; up_row / left_col / has_up /
+    has_left / l_md / ul_md / u_md as intra_encode_cells takes them; fl /
+    bt: (F, N) MPM flag and remainder bit.  Returns (rec (F, N, 8, 8)
+    int32, mode).  Shared by the single-device wavefront and the tiled one
+    (parallel/tiles.py)."""
+    first = ~has_up & ~has_left
+    pred_mode = torch.where(has_up & has_left, median3(l_md, ul_md, u_md),
+                            torch.where(has_left, l_md, u_md))
+    lo = torch.where(pred_mode == 0, 1, 0)
+    hi = torch.where(pred_mode == 2, 1, 2)
+    mode = torch.where(first, 2, torch.where(fl == 1, pred_mode,
+                                             torch.where(bt == 0, lo, hi))).to(torch.int32)
+
+    lsum = torch.where(has_left, left_col.sum(-1, dtype=torch.int32), 1024)
+    usum = torch.where(has_up, up_row.sum(-1, dtype=torch.int32), 1024)
+    m = mode[..., None, None]
+    pred0 = torch.where(has_up[..., None, None], up_row[..., None, :].to(dtype),
+                        128.0).expand(rr.shape)
+    pred1 = torch.where(has_left[..., None, None], left_col[..., :, None].to(dtype),
+                        128.0).expand(rr.shape)
+    pv = ((lsum + usum).to(dtype) / 16.0)[..., None, None]
+    predsel = torch.where(m == 0, pred0, torch.where(m == 1, pred1, pv))
+    return torch.clamp(c_trunc(rr + predsel), 0, 255), mode
 
 
 def intra_luma_decode_scan_packed(r: torch.Tensor, mpmf: torch.Tensor, mbit: torch.Tensor,
@@ -218,33 +261,10 @@ def intra_luma_decode_scan_packed(r: torch.Tensor, mpmf: torch.Tensor, mbit: tor
     recon = torch.zeros((fdim, gh, gw, 8, 8), **i32)
     rd = r.to(dtype)
     for gy, gx, gyu, gxl, _ in _diagonals(gh, gw, dev):
-        has_up = (gy > 0)[None]                       # (1, N)
-        has_left = (gx > 0)[None]
-        first = ~has_up & ~has_left
-        up_row = br[:, gyu, gx]                       # (F, N, 8)
-        left_col = rc[:, gy, gxl]
-        l_md, u_md, ul_md = modes[:, gy, gxl], modes[:, gyu, gx], modes[:, gyu, gxl]
-        pred_mode = torch.where(has_up & has_left, median3(l_md, ul_md, u_md),
-                                torch.where(has_left, l_md, u_md))
-        fl = mpmf[:, gy, gx]
-        bt = mbit[:, gy, gx]
-        lo = torch.where(pred_mode == 0, 1, 0)
-        hi = torch.where(pred_mode == 2, 1, 2)
-        mode = torch.where(first, 2, torch.where(fl == 1, pred_mode,
-                                                 torch.where(bt == 0, lo, hi))).to(torch.int32)
-
-        lsum = torch.where(has_left, left_col.sum(-1, dtype=torch.int32), 1024)
-        usum = torch.where(has_up, up_row.sum(-1, dtype=torch.int32), 1024)
-        m = mode[..., None, None]
-        rr = rd[:, gy, gx]
-        pred0 = torch.where(has_up[..., None, None], up_row[..., None, :].to(dtype),
-                            128.0).expand(rr.shape)
-        pred1 = torch.where(has_left[..., None, None], left_col[..., :, None].to(dtype),
-                            128.0).expand(rr.shape)
-        pv = ((lsum + usum).to(dtype) / 16.0)[..., None, None]
-        predsel = torch.where(m == 0, pred0, torch.where(m == 1, pred1, pv))
-        rec = torch.clamp(c_trunc(rr + predsel), 0, 255)
-
+        rec, mode = intra_decode_cells(
+            rd[:, gy, gx], br[:, gyu, gx], rc[:, gy, gxl], (gy > 0)[None], (gx > 0)[None],
+            modes[:, gy, gxl], modes[:, gyu, gxl], modes[:, gyu, gx], mpmf[:, gy, gx],
+            mbit[:, gy, gx], dtype)
         recon[:, gy, gx] = rec
         rc[:, gy, gx] = rec[..., :, 7]
         br[:, gy, gx] = rec[..., 7, :]

@@ -29,6 +29,9 @@ HOST_CC_FLAGS = ["-O2", "-shared", "-fPIC"]
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# guards the wrappers' launch counters: GOP shards on CUDA launch from
+# threads of their own (parallel/gop.py)
+count_lock = threading.Lock()
 
 
 def nvcc() -> str:

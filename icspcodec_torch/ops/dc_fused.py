@@ -82,7 +82,8 @@ def dc_dpcm_fused(dc: torch.Tensor, qstep: int, chroma: bool):
                  gh, gw, int(qstep), int(chroma), q.data_ptr(), dq.data_ptr(),
                  _build.stream_ptr(dc.device))
     _build.check(err, "dc_dpcm kernel")
-    launches += 1
+    with _build.count_lock:
+        launches += 1
     return q, dq
 
 
@@ -115,5 +116,6 @@ def idc_dpcm_fused(iq_dc: torch.Tensor, chroma: bool):
         err = fn(iq.data_ptr(), kind.data_ptr(), fdim, gh, gw, dq.data_ptr(),
                  _build.stream_ptr(iq.device))
     _build.check(err, "idc_dpcm kernel")
-    launches_inv += 1
+    with _build.count_lock:
+        launches_inv += 1
     return dq

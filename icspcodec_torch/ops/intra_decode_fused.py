@@ -150,5 +150,6 @@ def intra_luma_decode_fused(y_scan: torch.Tensor, mpm: torch.Tensor, mode_bit: t
                  int(qac), plane.data_ptr(), ring.data_ptr(), ring.numel(),
                  _build.stream_ptr(dev))
     _build.check(err, "intra_decode kernel")
-    launches += 1
+    with _build.count_lock:
+        launches += 1
     return plane

@@ -154,5 +154,6 @@ def intra_luma_scan_fused(orig: torch.Tensor, qdc: int, qac: int, table=COS_ENC,
                  acf.data_ptr(), plane.data_ptr() if want_recon else None,
                  ring.data_ptr(), ring.numel(), _build.stream_ptr(dev))
     _build.check(err, "intra_luma kernel")
-    launches += 1
+    with _build.count_lock:
+        launches += 1
     return res

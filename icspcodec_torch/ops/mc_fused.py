@@ -93,7 +93,8 @@ def mc_gather(pad: torch.Tensor, mv: torch.Tensor, block: int) -> torch.Tensor:
         err = fn(src.data_ptr(), mvi.data_ptr(), b, nby, nbx, int(block), pred.data_ptr(),
                  _build.stream_ptr(dev))
     _build.check(err, "mc_gather kernel")
-    launches += 1
+    with _build.count_lock:
+        launches += 1
     return pred
 
 
@@ -133,7 +134,8 @@ def mc_gather_yc(pad_y: torch.Tensor, pad_c: torch.Tensor, mv: torch.Tensor):
         err = fn(src_y.data_ptr(), src_c.data_ptr(), mvi.data_ptr(), b, nby, nbx,
                  pred_y.data_ptr(), pred_c.data_ptr(), _build.stream_ptr(dev))
     _build.check(err, "mc_gather_yc kernel")
-    launches += 1
+    with _build.count_lock:
+        launches += 1
     return pred_y, pred_c
 
 

@@ -123,7 +123,8 @@ def sad_mc_best(cur: torch.Tensor, pad: torch.Tensor):
                  N_CANON, best.data_ptr(), zc.data_ptr(), sads_c.data_ptr(), pred.data_ptr(),
                  _build.stream_ptr(dev))
     _build.check(err, "sad_mc_best kernel")
-    launches += 1
+    with _build.count_lock:
+        launches += 1
     return best, zc, sads_c, pred
 
 
@@ -162,7 +163,8 @@ def sad_union_extra(cur: torch.Tensor, pad: torch.Tensor) -> torch.Tensor:
     if cur.device.type == "cpu":
         return sad_union_extra_plain(cur, pad)
     out, launched = _sad_offsets(cur, pad, SPIRAL_UNION[N_CANON:], "sad_union_extra")
-    launches_extra += launched
+    with _build.count_lock:
+        launches_extra += launched
     return out
 
 
@@ -201,7 +203,8 @@ def sad_best(cur: torch.Tensor, pad: torch.Tensor):
         err = fn(src.data_ptr(), padc.data_ptr(), g, h, w, offs.data_ptr(), best.data_ptr(),
                  zc.data_ptr(), _build.stream_ptr(dev))
     _build.check(err, "sad_best kernel")
-    launches_best += 1
+    with _build.count_lock:
+        launches_best += 1
     return best, zc
 
 
@@ -220,5 +223,6 @@ def sad_union(cur: torch.Tensor, pad: torch.Tensor) -> torch.Tensor:
     if cur.device.type == "cpu":
         return sad_union_plain(cur, pad)
     out, launched = _sad_offsets(cur, pad, SPIRAL_UNION, "sad_union")
-    launches_union += launched
+    with _build.count_lock:
+        launches_union += launched
     return out

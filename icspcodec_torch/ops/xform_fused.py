@@ -159,5 +159,6 @@ def xform_fwd_fused(blocks: torch.Tensor, qdc: int, qac: int, chroma: bool, tabl
                      ws.data_ptr() + ncell * 8, ws.data_ptr(), scan[p0].data_ptr(),
                      acf[p0].data_ptr(), r[p0].data_ptr(), _build.stream_ptr(dev))
             _build.check(err, "xform_fwd kernel")
-            launches += 1
+            with _build.count_lock:
+                launches += 1
     return out

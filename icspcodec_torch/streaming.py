@@ -16,6 +16,11 @@ host chunk (entropy "host") holds the GOP's (codes, lengths) items from
 the numpy writer.  Both reduce to bit rows, which the final assembly
 splices at bit granularity, so the container is byte-identical to
 codec.encode's output.
+
+cfg.gop_shards > 1 encodes the pending GOPs in rounds of gop_shards over a
+device list (parallel/gop.py), as the JAX package does over its `gop`
+mesh, and writes host chunks: the chunks, the resume and the bytes are
+those of the unsharded run.
 """
 from __future__ import annotations
 
@@ -30,8 +35,8 @@ import torch
 
 from .bitstream import frame_rows
 from .bitstream_device import assemble_frames
-from .codec import (_SHARDING, _check_supported, encode_symbols, host_symbols, packed_rows,
-                    resolve_device)
+from .codec import (_check_supported, encode_symbols, host_symbols, packed_rows,
+                    resolve_device, shard_mesh)
 from .config import CodecConfig
 from .metrics import GopRecord, MetricsLog, psnr_y
 from .tables import pack_header
@@ -94,15 +99,16 @@ def _psnr_from_mse(mse: np.ndarray) -> float:
     return float((20 * np.log10(255.0 / np.sqrt(mse))).mean())
 
 
-def _encode_round(y, cb, cr, cfg: CodecConfig, dev: torch.device):
+def _encode_round(y, cb, cr, cfg: CodecConfig, dev: torch.device, mesh=None):
     """Upload a (G, P, ...) batch of equal-length GOPs as G*P frames and run
     the engines on it (codec.encode_symbols: one (G, P) GOP batch, or the
-    intra batch when P == 1).  Returns (g, p, frames on the device, the
+    intra batch when P == 1; sharded over the device list `mesh` when given,
+    dev then its first device).  Returns (g, p, frames on the device, the
     engines' (intra, inter, recon))."""
     g, p = y.shape[:2]
     frames = [torch.from_numpy(np.ascontiguousarray(a, np.uint8)).to(dev).flatten(0, 1)
               for a in (y, cb, cr)]
-    return g, p, frames, encode_symbols(*frames, cfg)
+    return g, p, frames, encode_symbols(*frames, cfg, mesh=mesh)
 
 
 def _encode_gop_batch_dev(y, cb, cr, cfg: CodecConfig, dev: torch.device):
@@ -119,11 +125,12 @@ def _encode_gop_batch_dev(y, cb, cr, cfg: CodecConfig, dev: torch.device):
             for gi in range(g)]
 
 
-def _encode_gop_batch(y, cb, cr, cfg: CodecConfig, dev: torch.device):
-    """Host-entropy encode of a (G, P, ...) GOP batch: the symbols are
-    pulled and the numpy writer builds the items.  Returns per GOP (codes,
-    lengths, psnr_y): the GOP's items in display order, 1-D."""
-    g, p, _, ((isyms, iidx), inter, rec) = _encode_round(y, cb, cr, cfg, dev)
+def _encode_gop_batch(y, cb, cr, cfg: CodecConfig, dev: torch.device, mesh=None):
+    """Host-entropy encode of a (G, P, ...) GOP batch, on `dev` or sharded
+    over the device list `mesh`: the symbols are pulled and the numpy writer
+    builds the items.  Returns per GOP (codes, lengths, psnr_y): the GOP's
+    items in display order, 1-D."""
+    g, p, _, ((isyms, iidx), inter, rec) = _encode_round(y, cb, cr, cfg, dev, mesh)
     psyms, pidx = inter or (None, None)
     rows_c, rows_l = frame_rows(host_symbols(isyms), iidx, host_symbols(psyms), pidx, g * p)
     recon_y = rec["y"].cpu().numpy().reshape(y.shape)
@@ -139,18 +146,19 @@ def encode_streaming(y, cb, cr, cfg: CodecConfig, workdir: str, seq_name: str = 
     codec.encode's.
 
     device: where to run, as codec.encode takes it: None means the CUDA
-    card, and raises when there is none.  tile_shards > 1 raises ValueError
-    (the tiled engines shard single frames, not GOP batches); gop_shards > 1
-    raises NotImplementedError (sharding is not ported)."""
+    card, and raises when there is none.  cfg.gop_shards > 1 encodes the
+    pending GOPs in rounds of gop_shards GOPs split over a list of devices
+    (device: the list, or None for every CUDA device; a single device
+    raises ValueError) and writes host chunks.  tile_shards > 1 raises
+    ValueError (the tiled engines shard single frames, not GOP batches)."""
     if cfg.tile_shards > 1:
         raise ValueError(
             "encode_streaming does not support tile_shards > 1; use "
             "gop_shards for sharded streaming or codec.encode for tiling"
         )
-    if cfg.gop_shards > 1:
-        raise NotImplementedError(_SHARDING)
     _check_supported(cfg)
-    dev = resolve_device(device)
+    mesh = shard_mesh(cfg.gop_shards, 1, device)
+    dev = resolve_device(device) if mesh is None else mesh[0]
     wd = pathlib.Path(workdir)
     wd.mkdir(parents=True, exist_ok=True)
     nf = y.shape[0]
@@ -185,21 +193,26 @@ def encode_streaming(y, cb, cr, cfg: CodecConfig, workdir: str, seq_name: str = 
         else:
             pending.append((g, idxs))
 
-    # pending GOPs of equal length form rounds of up to ROUND_GOPS (a
-    # shorter tail GOP its own round): one batched encode a round, one
-    # durable chunk a GOP
+    # pending GOPs of equal length form rounds of up to ROUND_GOPS, or of
+    # gop_shards when sharded (a shorter tail GOP its own round): one
+    # batched encode a round, one durable chunk a GOP
+    rsize = cfg.gop_shards if mesh is not None else ROUND_GOPS
     rounds: list[list] = []
     for g, idxs in pending:
-        if rounds and len(rounds[-1]) < ROUND_GOPS and len(rounds[-1][0][1]) == len(idxs):
+        if rounds and len(rounds[-1]) < rsize and len(rounds[-1][0][1]) == len(idxs):
             rounds[-1].append((g, idxs))
         else:
             rounds.append([(g, idxs)])
-    dev_entropy = cfg.entropy != "host"
-    encode_batch = _encode_gop_batch_dev if dev_entropy else _encode_gop_batch
+    # device entropy as codec.encode gates it: the sharded path writes host
+    # chunks
+    dev_entropy = mesh is None and cfg.entropy != "host"
     for batch in rounds:
         t0 = time.time()
         stack = lambda a: np.stack([a[idxs] for _, idxs in batch])  # noqa: E731
-        items = encode_batch(stack(y), stack(cb), stack(cr), cfg, dev)
+        if dev_entropy:
+            items = _encode_gop_batch_dev(stack(y), stack(cb), stack(cr), cfg, dev)
+        else:
+            items = _encode_gop_batch(stack(y), stack(cb), stack(cr), cfg, dev, mesh)
         wall = (time.time() - t0) / len(batch)
         for (g, idxs), res in zip(batch, items):
             chunk = wd / f"gop_{g:05d}.npz"

@@ -86,8 +86,11 @@ def test_encode_without_gpu_raises(monkeypatch):
 @pytest.mark.parametrize("bad", [dict(gop_shards=2), dict(tile_shards=2),
                                  dict(entropy="host", gop_shards=2)])
 def test_configs_outside_the_slice_are_refused(bad):
+    """A sharded config runs over a list of devices: a single device is
+    refused, pointing at the list form (tests/test_torch_gop_sharding.py
+    runs the lists)."""
     y, cb, cr = _frames(f=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="list of devices"):
         tcodec.encode(y, cb, cr, TConfig(width=96, height=64, **bad), device="cpu")
 
 

@@ -10,7 +10,7 @@ at most 6 frames; the plain versions of the kernels on the CPU).
 * the digests chip_smoke.py checks on the card are the JAX decode's;
 * fast mode: PSNR-Y within 0.05 dB of the JAX fast decode (float32 sums
   in another order can move a pixel on a truncation boundary by one);
-* the entry point: no silent CPU fallback, sharding refused.
+* the entry point: no silent CPU fallback; sharding takes a device list.
 """
 import functools
 
@@ -208,6 +208,8 @@ def test_decode_without_gpu_raises(monkeypatch):
 
 @pytest.mark.parametrize("shards", [dict(gop_shards=2), dict(tile_shards=2)])
 def test_decode_refuses_sharding(shards):
+    """A sharded decode runs over a list of devices: a single device is
+    refused, pointing at the list form."""
     data = tcodec.encode(*_content(1, f=1), TConfig(width=W, height=H), device="cpu")[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11"):
+    with pytest.raises(ValueError, match="list of devices"):
         tcodec.decode(data, 1, device="cpu", **shards)

@@ -108,7 +108,7 @@ def test_fingerprint_and_pack_row_match_jax():
 def test_sharding_and_missing_gpu_are_refused(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="tile_shards"):
         _run("inter", tmp_path / "a", tile_shards=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="list of devices"):   # a single device
         _run("inter", tmp_path / "b", gop_shards=2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     make, base, _ = CASES["inter"]
