@@ -18,7 +18,14 @@ JAX package's output.  Phases, each of which fails the run:
               same grid; both at luma kinds at QCIF and 720p, and at luma
               and chroma kinds on planes of 769 block rows (past the 768
               the first port took) and 8,190 (the header's largest),
-              narrow; bit-identical (torch.equal).
+              narrow; bit-identical (torch.equal).  B also, in float32
+              and float64 and at luma and chroma kinds, on the planes just
+              inside and just past the staged layout's limit for each type
+              (the launcher's own answer), at gh = 1, gw = 1, odd gw and
+              more than one band, at qstep 1 .. 255, on half-integer DCs
+              and negative residuals, printing the layout each took; and
+              its multiply-high division against C division for every
+              qstep 1 .. 255 and every int32 dividend.
               No codec path runs B (the encoder's chroma chain is kernel
               F), so B's path is its entry point, ops/dc_fused.dc_dpcm_fused,
               called once at the CIF300 chroma grid (launch counter)
@@ -506,8 +513,21 @@ def main() -> int:
                           "sad_union")}  # largest |kernel - plain|
 
     # ---- 2. kernels B and B' vs plain -------------------------------------
+    def b_layout(x):
+        """The layout kernel B takes for the planes x: the launcher's answer."""
+        ppc = dc_fused.forward_planes_per_cta(*x.shape, x.dtype == torch.float64, dev)
+        return f"staged, {ppc} plane{'s' if ppc > 1 else ''} a CTA" if ppc else "ring"
+
+    def check_b(x, qstep, chroma, what):
+        ok = all(torch.equal(a, b) for a, b in zip(dc_fused.dc_dpcm_fused(x, qstep, chroma),
+                                                    dc_fused.dc_dpcm_plain(x, qstep, chroma)))
+        check(ok, f"kernel B {x.dtype} {what} {tuple(x.shape)} (chroma {chroma}, qstep {qstep}, "
+                  f"{b_layout(x)}): differs from plain")
+
+    dcs = {}
     for dtype in (torch.float32, torch.float64):
         dc = fdct(to_blocks(ct).to(torch.int32), dtype=dtype)[..., 0, 0].contiguous()
+        dcs[dtype] = dc
         for qstep in (16, 1):
             qk, dqk = dc_fused.dc_dpcm_fused(dc, qstep, chroma=True)
             qp, dqp = dc_fused.dc_dpcm_plain(dc, qstep, chroma=True)
@@ -515,8 +535,56 @@ def main() -> int:
             err["B"] = max(err["B"], e)
             check(e == 0, f"kernel B {dtype} qstep {qstep}: differs from plain by {e}")
             print(f"kernel B {str(dtype)[6:]} qstep {qstep}: bit-identical "
-                  f"({dc.shape[0]} planes)", flush=True)
-    dc32 = fdct(to_blocks(ct).to(torch.int32), dtype=f32)[..., 0, 0].contiguous()
+                  f"({dc.shape[0]} planes; {b_layout(dc)})", flush=True)
+    dc32, dc64 = dcs[f32], dcs[torch.float64]
+    # B on both sides of the staged layout's limit, which the launcher
+    # computes for each type from the card's opt-in shared memory (the
+    # tallest plane of width 4 that it stages), on edge shapes (gh = 1,
+    # gw = 1, odd gw), on planes of more than one band of the walk (128 block
+    # rows) and at every qstep the header carries (1 .. 255), on DCs with
+    # exact half-integers and residuals far below zero (floor against trunc,
+    # C division of negatives)
+    rng = np.random.default_rng(9)
+
+    def edge_dcs(f, gh, gw):
+        a = rng.normal(1024, 400, (f, gh, gw))
+        a[..., ::3] = np.round(a[..., ::3]) + 0.5
+        a[..., 1::4] = -rng.uniform(0, 3000, a[..., 1::4].shape)
+        a[..., 2::5] = np.round(rng.uniform(-3000, 3000, a[..., 2::5].shape)) - 0.5
+        return torch.from_numpy(a).to(dev)
+
+    b_layouts = {}
+    for dtype in (f32, torch.float64):
+        name = str(dtype)[6:]
+        lo, hi = 1, 8190
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            if dc_fused.forward_planes_per_cta(2, mid, 4, dtype == torch.float64, dev):
+                lo = mid
+            else:
+                hi = mid - 1
+        check(lo < 8190, f"kernel B {name}: stages planes of every height (no ring walk left)")
+        for shape in ((2, lo, 4), (2, lo + 1, 4), (3, 1, 9), (3, 7, 1), (3, 5, 7), (2, 200, 3),
+                      (2, 300, 22)):
+            x = edge_dcs(*shape).to(dtype)
+            for chroma in (False, True):
+                for qstep in (7,) if shape[1] > 1000 else (1, 7, 16, 255):
+                    check_b(x, qstep, chroma, "edge DCs")
+            b_layouts[f"{name} {shape}"] = b_layout(x)
+            print(f"kernel B {name} {shape}: {b_layouts[f'{name} {shape}']}, bit-identical "
+                  "(luma and chroma kinds)", flush=True)
+        check(b_layouts[f"{name} {(2, lo, 4)}"] != "ring" and b_layouts[f"{name} {(2, lo + 1, 4)}"]
+              == "ring", f"kernel B {name}: the planes beside the limit took {b_layouts}")
+        x = edge_dcs(8, 18, 22).to(dtype)
+        for qstep in range(1, 256):
+            for chroma in (False, True):
+                check_b(x, qstep, chroma, "qstep sweep")
+        print(f"kernel B {name}: bit-identical at qstep 1 .. 255 (8 planes of 18x22, "
+              f"{b_layout(x)}, luma and chroma kinds)", flush=True)
+    div_bad = int(dc_fused.division_mismatches(255, dev).sum())
+    check(div_bad == 0, f"kernel B's division differs from C division for {div_bad} dividends")
+    print("kernel B's multiply-high division equals C division for qstep 1 .. 255 and every "
+          "int32 dividend", flush=True)
     # B' on the dequantized DC residuals of the CIF300 chroma planes
     iq_c = dc_fused.dc_dpcm_fused(dc32, 16, chroma=True)[0] * 16
     e = max_abs(dc_fused.idc_dpcm_fused(iq_c, chroma=True), dc_fused.idc_dpcm_plain(iq_c, True))
@@ -526,20 +594,21 @@ def main() -> int:
     # planes past the 768 block rows the first port took, and of the
     # header's largest height (8,190 block rows, 65,520 lines), narrow
     rng = np.random.default_rng(8190)
+    tall_layouts = {}
     for gh in (769, 8190):
         for chroma in (False, True):
             dcb = torch.from_numpy(rng.normal(1024, 400, (2, gh, 4))).to(dev)
             for dtype in (f32, torch.float64):
                 x = dcb.to(dtype)
-                check(all(torch.equal(a, b) for a, b in zip(
-                    dc_fused.dc_dpcm_fused(x, 7, chroma), dc_fused.dc_dpcm_plain(x, 7, chroma))),
-                    f"kernel B {dtype} on {gh} block rows (chroma {chroma}): differs from plain")
+                check_b(x, 7, chroma, "tall")
+                tall_layouts[f"{str(dtype)[6:]} {tuple(x.shape)}"] = b_layout(x)
             iq = torch.from_numpy(rng.integers(-3000, 3000, (2, gh, 4))).to(dev)
             check(torch.equal(dc_fused.idc_dpcm_fused(iq, chroma),
                               dc_fused.idc_dpcm_plain(iq, chroma)),
                   f"kernel B' on {gh} block rows (chroma {chroma}): differs from plain")
     print("kernels B (float32, float64) and B' on planes of 769 and 8,190 block rows, luma and "
-          "chroma kinds: bit-identical", flush=True)
+          "chroma kinds: bit-identical; B's layouts " + json.dumps(tall_layouts), flush=True)
+    b_layouts.update(tall_layouts)
     del dcb, x, iq
     # B's path: its entry point, which no codec path calls since the
     # encoder's chroma chain went through kernel F
@@ -628,7 +697,8 @@ def main() -> int:
         iq = torch.from_numpy(rng.integers(-3000, 3000, (3, h // 8, w // 8))).to(dev)
         ei = max_abs(dc_fused.idc_dpcm_fused(iq, False), dc_fused.idc_dpcm_plain(iq, False))
         check(ei == 0, f"kernel B' (luma kinds) at {w}x{h}: differs from plain by {ei}")
-        print(f"kernels A, B and B' float64 / int at {w}x{h}: bit-identical", flush=True)
+        print(f"kernels A, B and B' float64 / int at {w}x{h}: bit-identical (B {b_layout(dc)})",
+              flush=True)
 
     # ---- 4. end to end: the all-intra encode ------------------------------
     cfg = CodecConfig(width=W, height=H, qp_dc=16, qp_ac=16, precision="fast")
@@ -680,6 +750,11 @@ def main() -> int:
         oy, 16, 16, dtype=f32, recon_plane=True), 5)["device_ms"],
               "B": device_profile(lambda: dc_fused.dc_dpcm_fused(dc32, 16, chroma=True))[
                   "device_ms"]}   # the profiler's device ms per call of each timed function
+    # B also in float64, and on one P-step's chroma planes (60 of 18x22)
+    b64_dev_ms = device_profile(lambda: dc_fused.dc_dpcm_fused(dc64, 16, chroma=True))[
+        "device_ms"]
+    b60_dev_ms = device_profile(lambda: dc_fused.dc_dpcm_fused(dc32[:60], 16, chroma=True))[
+        "device_ms"]
 
     nblk = oy.shape[0] * oy.shape[1] * oy.shape[2]
     a_bytes = nblk * (64 + 128 + 3 + 64) + 2 * 64 * 64 * 4 + 64 * 4 + 36 * 44 * 4
@@ -696,8 +771,11 @@ def main() -> int:
     a64_bound = max(a_bytes / PEAK_BYTES_S, a64_flops / PEAK_F64_FLOP_S) * 1e3
     a_diagonals = 2 * (oy.shape[1] - 1) + oy.shape[2]
     ncell = dc32.numel()
+    # B reads its DCs and the kind grid once and writes q and dq
     b_bytes = ncell * (4 + 4 + 4) + 18 * 22 * 4
     b_bound = b_bytes / PEAK_BYTES_S * 1e3
+    b64_bound = (ncell * (8 + 4 + 4) + 18 * 22 * 4) / PEAK_BYTES_S * 1e3
+    b60_bound = (60 * 18 * 22 * (4 + 4 + 4) + 18 * 22 * 4) / PEAK_BYTES_S * 1e3
     del oy
 
     # ---- 5. kernel E vs plain ---------------------------------------------
@@ -1694,7 +1772,17 @@ def main() -> int:
              replaces="icspcodec_tpu/ops/pallas_dc.py:66", launches=launches_b["B"],
              max_abs_err=err["B"], ms=kb_ms, device_ms=dev_ms["B"], plain_ms=pb_ms,
              bound_ms=b_bound, bound_by="bytes", library_ms=None,
-             check="bit-identical in float32 and float64 at qstep 16 and 1",
+             share_of_bound=b_bound / dev_ms["B"], layout=b_layout(dc32),
+             device_ms_float64=b64_dev_ms, bound_ms_float64=b64_bound,
+             share_of_bound_float64=b64_bound / b64_dev_ms, layout_float64=b_layout(dc64),
+             device_ms_p_step_chroma=b60_dev_ms, bound_ms_p_step_chroma=b60_bound,
+             layout_p_step_chroma=b_layout(dc32[:60]), layouts_checked=b_layouts,
+             division_mismatches=div_bad,
+             check="bit-identical in float32 and float64 at qstep 16 and 1; luma and chroma "
+                   "kinds on both sides of the staged layout's limit, at gh = 1, gw = 1, odd "
+                   "gw, more than one band, 769 and 8,190 block rows, and at qstep 1 .. 255 on "
+                   "half-integer and negative-residual DCs; its division equal to C division "
+                   "for every qstep 1 .. 255 and int32 dividend",
              path="its entry point, ops/dc_fused.dc_dpcm_fused, at the CIF300 chroma grid; "
                   "no codec path calls it (the encoder's chroma chain is kernel F)",
              launches_encode=launches_enc["B"]),

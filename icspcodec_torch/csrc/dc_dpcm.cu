@@ -13,7 +13,8 @@
 // integer, and those two are rounded as IEEE operations (__fsub_rn, ...),
 // so the kernel is bit-identical to the plain version in float and double.
 // B' (the decoder) reads integer residuals iq and writes dq = iq + pred: all
-// integer, bit-identical.
+// integer, bit-identical.  The two differ only in that cell (Quantize and
+// Reconstruct below); both walks take the cell as a template parameter.
 //
 // Bound on this card.  For the CIF300 chroma batch (600 planes of 18x22) B
 // reads 0.95 MB of float DCs and writes 1.9 MB of int32 q and dq: 2.85 MB,
@@ -23,31 +24,39 @@
 // and 0.19 MB of chroma.  What paces both is the chain of dependent
 // diagonals (56 for CIF chroma, 114 for CIF luma).
 //
-// Design.  The ring walk (B, and B' for planes too large to stage): one
-// warp per plane walks the diagonals, one cell per lane (lanes loop when a
+// Design.  Both stage a plane in shared memory where the kind grid and one
+// plane fit (B' up to 720p luma and 1080p chroma; B less, its planes holding
+// a float or double input and an int q a cell: float32 planes 4 blocks wide
+// up to 3,874 block rows on an H100, float64 2,905): all threads copy the
+// kind grid and the CTA's planes into shared memory by cp.async, every copy
+// in flight at once, coalesced; then one warp per plane walks it in bands
+// of up to 128 block rows with the walk's state in registers and shuffles
+// (walk, below), no global access and no branch in a step, each cell's dq
+// written over its input; then all threads store the planes, coalesced.
+// The launcher puts up to 4 planes in a CTA, fewer when the planes would
+// not otherwise fill the SMs.  B's step is longer than B''s (int to float,
+// two rounded adds, floor or trunc, the division, a multiply-add), and the
+// division is on its chain, so B divides by a 32-bit multiply-high
+// (Divider): on the card it beat both `/` and kernel F's 64-bit one at
+// every shape tried, as staging by cp.async beat four register loads a
+// thread in flight for B (for B' it was faster on a P-step's luma, even
+// at the CIF300 chroma batch, slower on a P-step's 60 chroma planes).  Taller
+// planes take the ring walk: one warp
+// per plane walks the diagonals, one cell per lane (lanes loop when a
 // diagonal holds more than 32 cells), with a __syncwarp() between
-// diagonals.  The dequantized DCs that later cells read sit in a ring of 4
-// slots per block row in shared memory (slot gx & 3): a cell reads slots
-// gx-1 .. gx+1 of the row above and gx-1 of its own row, while the cell of
-// the row above on the same diagonal writes slot gx+2, so no two touch the
-// same slot.  The ring takes 16 bytes a block row; the launcher puts as
-// many planes in a CTA as the card's opt-in shared memory holds, at least
-// one, so one plane of the header's 8,190 block rows takes 131 KB.  Each
-// step of this walk loads its cell from global memory, so a diagonal costs
-// about one memory latency.
-//   B' stages instead, when the kind grid and a plane fit in shared memory
-// (up to 720p luma and 1080p chroma, a plane a CTA): all threads copy the kind
-// grid and the CTA's planes of residuals into shared memory, four loads a
-// thread in flight, coalesced; then one warp per plane walks it in bands of
-// up to 128 block rows with the walk's state in registers and shuffles
-// (walk, below), no global access and no branch in a step; then all
-// threads store the planes, coalesced.  The launcher puts up to 4 planes in
-// a CTA, fewer when the planes would not otherwise fill the SMs.  A first
-// version walked the staged plane in shared memory and chose the predictor
-// by branches with the neighbour loads inside them, which serialised the
-// loads and made the divergent lanes take turns: it was slower than the
-// ring walk (PERF.md).  The TPU kernel's shear layout and rolls are not
-// needed here.
+// diagonals, each step loading its cell from global memory, so a diagonal
+// costs about one memory latency.  The dequantized DCs that later cells
+// read sit in a ring of 4 slots per block row in shared memory (slot
+// gx & 3): a cell reads slots gx-1 .. gx+1 of the row above and gx-1 of its
+// own row, while the cell of the row above on the same diagonal writes slot
+// gx+2, so no two touch the same slot.  The ring takes 16 bytes a block
+// row; the launcher puts as many planes in a CTA as the card's opt-in
+// shared memory holds, at least one, so one plane of the header's 8,190
+// block rows takes 131 KB.  A first staged version of B' walked the plane
+// in shared memory and chose the predictor by branches with the neighbour
+// loads inside them, which serialised the loads and made the divergent
+// lanes take turns: it was slower than the ring walk (PERF.md).  The TPU
+// kernel's shear layout and rolls are not needed here.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,6 +82,58 @@ constexpr int RING_WARPS = 4;     // planes a CTA of the ring walk, at most
 constexpr int RING_ROW_BYTES = 16;
 constexpr int STAGE_WARPS = 4;    // threads of a staged CTA / 32, and its planes at most
 
+// C division by a positive qstep as a multiply-high with a sign correction
+// (Granlund and Montgomery's round-up method, exact for every 32-bit
+// magnitude): a few dependent integer operations, on the chain of every
+// step, where `/` by a value known only at run time is a longer emulated
+// sequence.
+// chip_smoke.py holds it equal to `/` for every qstep the header carries
+// (1 .. 255) and every int32 dividend (icsp_dc_dpcm_cdiv_check).
+struct Divider {
+  int d;
+  unsigned mag;
+  int s1, s2;
+  static Divider of(int d) {
+    int l = 0;   // ceil(log2 d)
+    while ((1ull << l) < (unsigned long long)d) ++l;
+    const unsigned mag = (unsigned)(((1ull << 32) * ((1ull << l) - d)) / d + 1);
+    return {d, mag, l < 1 ? l : 1, l > 1 ? l - 1 : 0};
+  }
+  __device__ __forceinline__ int div(int t) const {
+    const unsigned n = t < 0 ? 0u - (unsigned)t : (unsigned)t;
+    const unsigned hi = __umulhi(n, mag);
+    const unsigned q = (hi + ((n - hi) >> s1)) >> s2;   // floor(n / d)
+    return (int)(t < 0 ? 0u - q : q);
+  }
+};
+
+// B's cell: from the cell's DC and its predictor, q and dq.
+template <typename T, bool CHROMA>
+struct Quantize {
+  using In = T;
+  static constexpr bool kQ = true;   // writes q beside dq
+  Divider qstep;
+  __device__ __forceinline__ int operator()(T dc, int pred, int& q) const {
+    const T half = add_rn(sub_rn(dc, (T)pred), (T)0.5);
+    const int t = CHROMA ? (int)floor(half) : (int)half;  // (int) truncates
+    q = qstep.div(t);                                      // C division
+    return q * qstep.d + pred;
+  }
+};
+
+// B''s cell: dq = iq + pred.
+struct Reconstruct {
+  using In = int;
+  static constexpr bool kQ = false;
+  __device__ __forceinline__ int operator()(int iq, int pred, int&) const { return iq + pred; }
+};
+
+// Shared memory a cell of a staged plane: its input, and B's q.
+template <typename Cell>
+constexpr size_t cell_bytes() {
+  return sizeof(typename Cell::In) + (Cell::kQ ? sizeof(int) : 0);
+}
+
 // The kind-coded predictor of cell (gy, gx) from the ring of dequantized
 // DCs (slot gx & 3 of each block row).
 __device__ __forceinline__ int ring_pred(const int* ring, int k, int gy, int gx, int gw) {
@@ -81,43 +142,12 @@ __device__ __forceinline__ int ring_pred(const int* ring, int k, int gy, int gx,
   return dc_pred(k, ring[gy * 4 + sl], ring[gyu * 4 + sl], ring[gyu * 4 + sc], ring[gyu * 4 + sr]);
 }
 
-// The ring walk of B: a plane per warp, blockDim.x / 32 planes a CTA.
-template <typename T, bool CHROMA>
-__global__ void dc_dpcm_kernel(const T* __restrict__ dc, const int* __restrict__ kind,
-                               int nplanes, int gh, int gw, int qstep, int* __restrict__ q,
-                               int* __restrict__ dq) {
-  extern __shared__ int ring_all[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int plane = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (plane >= nplanes) return;  // whole warps only: no block barrier follows
-  int* ring = ring_all + warp * gh * 4;
-  for (int i = lane; i < gh * 4; i += 32) ring[i] = 0;
-  __syncwarp();
-
-  const long long base = (long long)plane * gh * gw;
-  const int nsteps = 2 * (gh - 1) + gw;
-  for (int d = 0; d < nsteps; ++d) {
-    const int lo = d - gw + 1 > 0 ? (d - gw + 2) / 2 : 0;
-    const int hi = min(gh - 1, d / 2);
-    for (int gy = lo + lane; gy <= hi; gy += 32) {
-      const int gx = d - 2 * gy;
-      const int pred = ring_pred(ring, kind[gy * gw + gx], gy, gx, gw);
-      const long long c = base + gy * gw + gx;
-      const T half = add_rn(sub_rn(dc[c], (T)pred), (T)0.5);
-      const int t = CHROMA ? (int)floor(half) : (int)half;  // (int) truncates
-      const int qv = t / qstep;                             // C division
-      const int dqv = qv * qstep + pred;
-      q[c] = qv;
-      dq[c] = dqv;
-      ring[gy * 4 + (gx & 3)] = dqv;
-    }
-    __syncwarp();
-  }
-}
-
-// B' by the ring walk: the same walk, dq = iq + pred.
-__global__ void idc_dpcm_ring_kernel(const int* __restrict__ iq, const int* __restrict__ kind,
-                                     int nplanes, int gh, int gw, int* __restrict__ dq) {
+// The ring walk: a plane per warp, blockDim.x / 32 planes a CTA.  q is
+// written by B only.
+template <typename Cell>
+__global__ void ring_kernel(const typename Cell::In* __restrict__ x, const int* __restrict__ kind,
+                            int nplanes, int gh, int gw, Cell cell, int* __restrict__ q,
+                            int* __restrict__ dq) {
   extern __shared__ int ring_all[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int plane = blockIdx.x * (blockDim.x >> 5) + warp;
@@ -134,7 +164,9 @@ __global__ void idc_dpcm_ring_kernel(const int* __restrict__ iq, const int* __re
     for (int gy = lo + lane; gy <= hi; gy += 32) {
       const int gx = d - 2 * gy;
       const long long c = base + gy * gw + gx;
-      const int dqv = iq[c] + ring_pred(ring, kind[gy * gw + gx], gy, gx, gw);
+      int qv;
+      const int dqv = cell(x[c], ring_pred(ring, kind[gy * gw + gx], gy, gx, gw), qv);
+      if constexpr (Cell::kQ) q[c] = qv;
       dq[c] = dqv;
       ring[gy * 4 + (gx & 3)] = dqv;
     }
@@ -142,44 +174,53 @@ __global__ void idc_dpcm_ring_kernel(const int* __restrict__ iq, const int* __re
   }
 }
 
-// Copies `total` ints from src into rows of stride S in dst: element i goes
-// to row i / gw, column i % gw.  Four loads a thread are in flight before
-// any store; m = ceil(2^32 / gw) divides (gw >= 2, i * gw < 2^32).
-__device__ __forceinline__ void stage(const int* __restrict__ src, int total, int gw, int S,
-                                      unsigned m, int* dst) {
-  for (int i0 = threadIdx.x; i0 < total; i0 += 4 * blockDim.x) {
-    int v[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = i0 + j * blockDim.x;
-      v[j] = i < total ? src[i] : 0;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = i0 + j * blockDim.x;
-      const int row = gw == 1 ? i : (int)__umulhi((unsigned)i, m);
-      if (i < total) dst[row * S + i - row * gw] = v[j];
-    }
+// Copies `total` elements from src into rows of stride S in dst: element i
+// goes to row i / gw, column i % gw; m = ceil(2^32 / gw) divides (gw >= 2,
+// i * gw < 2^32).  By cp.async, through no register: every copy of the CTA
+// is in flight at once, and the CTA waits once for all of them (wait_staged).
+template <typename T>
+__device__ __forceinline__ void stage(const T* __restrict__ src, int total, int gw, int S,
+                                      unsigned m, T* dst) {
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int row = gw == 1 ? i : (int)__umulhi((unsigned)i, m);
+    const unsigned to = (unsigned)__cvta_generic_to_shared(dst + row * S + i - row * gw);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(to), "l"(src + i),
+                 "n"(sizeof(T)));
   }
 }
 
-// B' staged: ppc planes a CTA of STAGE_WARPS warps.  Shared memory: the
-// kind grid, then the planes, each (gh, S) int32 with S = gw | 1.  A warp
-// walks its plane in bands of 32 * ROWS block rows, lane L holding rows
-// ROWS L .. ROWS L + ROWS - 1 of the band with the last three dequantized
-// DCs of each in registers, as kernel F's DC walk does: at step d, row gy
-// takes cell gx = d - 2 gy, whose left neighbour is its own last dq and
-// whose upper neighbours (gx + 1, gx, gx - 1) row gy - 1 took at steps d -
-// 1, d - 2 and d - 3 (at gx = gw - 1 that row ended a step early: ur = u,
-// ul its second last), read from the lane's row above, from lane L - 1 by
-// a shuffle, or, for the top row of a band below another, from the plane,
-// where the band above left its results.  The step's residual and kind are
-// loaded one step ahead; the step has no branch and no other load, and
-// writes its dq over its residual.
-template <int ROWS>
-__device__ __forceinline__ void walk(int* v, const int* kd, int gh, int gw, int S, int lane) {
+// Waits for this thread's cp.async copies, then for the CTA's.
+__device__ __forceinline__ void wait_staged() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// The dq of cell c of a staged plane, written over the cell's input (in the
+// low word of a double's slot).
+template <typename T>
+__device__ __forceinline__ int& dq_at(T* v, int c) {
+  return *reinterpret_cast<int*>(v + c);
+}
+
+// A warp walks its staged plane v (row stride S; B's q plane qs beside it)
+// in bands of 32 * ROWS block rows, lane L holding rows ROWS L .. ROWS L +
+// ROWS - 1 of the band with the last three dequantized DCs of each in
+// registers, as kernel F's DC walk does: at step d, row gy takes cell gx =
+// d - 2 gy, whose left neighbour is its own last dq and whose upper
+// neighbours (gx + 1, gx, gx - 1) row gy - 1 took at steps d - 1, d - 2 and
+// d - 3 (at gx = gw - 1 that row ended a step early: ur = u, ul its second
+// last), read from the lane's row above, from lane L - 1 by a shuffle, or,
+// for the top row of a band below another, from the plane, where the band
+// above left its dq.  The step's input and kind are loaded one step ahead;
+// the step has no branch and no other load, and writes its dq over its
+// input.
+template <int ROWS, typename Cell>
+__device__ __forceinline__ void walk(typename Cell::In* v, int* qs, const int* kd, int gh, int gw,
+                                     int S, int lane, Cell cell) {
+  using T = typename Cell::In;
   for (int gy0 = 0; gy0 < gh; gy0 += 32 * ROWS) {
-    int h1[ROWS], h2[ROWS], h3[ROWS], vn[ROWS], kn[ROWS];
+    int h1[ROWS], h2[ROWS], h3[ROWS], kn[ROWS];
+    T vn[ROWS];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       const int gy = gy0 + lane * ROWS + r, c = gy < gh ? gy * S : 0;
@@ -187,7 +228,7 @@ __device__ __forceinline__ void walk(int* v, const int* kd, int gh, int gw, int 
       vn[r] = v[c];
       kn[r] = kd[c];
     }
-    const int* up = v + (gy0 > 0 ? gy0 - 1 : 0) * S;   // the row above the band
+    const int up = (gy0 > 0 ? gy0 - 1 : 0) * S;   // the row above the band
     const int d_end = 2 * (min(gh, gy0 + 32 * ROWS) - 1) + gw;
     for (int d = 2 * gy0; d < d_end; ++d) {
       // the row above this lane's first row, as its last three results
@@ -196,15 +237,16 @@ __device__ __forceinline__ void walk(int* v, const int* kd, int gh, int gw, int 
       int a3 = __shfl_up_sync(FULL, h3[ROWS - 1], 1);
       if (gy0 > 0 && lane == 0) {
         const int m = min(d - 2 * gy0 + 1, gw - 1);   // its last cell by step d - 1
-        a1 = up[max(m, 0)];
-        a2 = up[max(m - 1, 0)];
-        a3 = up[max(m - 2, 0)];
+        a1 = dq_at(v, up + max(m, 0));
+        a2 = dq_at(v, up + max(m - 1, 0));
+        a3 = dq_at(v, up + max(m - 2, 0));
       }
 #pragma unroll
       for (int r = ROWS - 1; r >= 0; --r) {
         const int gy = gy0 + lane * ROWS + r, gx = d - 2 * gy;
         const bool on = gy < gh && gx >= 0 && gx < gw;
-        const int iqv = vn[r], k = kn[r];
+        const T xv = vn[r];
+        const int k = kn[r];
         const bool on1 = gy < gh && gx + 1 >= 0 && gx + 1 < gw;
         const int c1 = on1 ? gy * S + gx + 1 : 0;
         vn[r] = v[c1];
@@ -218,8 +260,12 @@ __device__ __forceinline__ void walk(int* v, const int* kd, int gh, int gw, int 
         pred = k == 2 ? u : pred;
         pred = k == 1 ? l : pred;
         pred = k == 0 ? 1024 : pred;
-        const int dqv = iqv + pred;
-        if (on) v[gy * S + gx] = dqv;
+        int qv;
+        const int dqv = cell(xv, pred, qv);
+        if (on) {
+          dq_at(v, gy * S + gx) = dqv;
+          if constexpr (Cell::kQ) qs[gy * S + gx] = qv;
+        }
         h3[r] = on ? h2[r] : h3[r];
         h2[r] = on ? h1[r] : h2[r];
         h1[r] = on ? dqv : h1[r];
@@ -229,29 +275,54 @@ __device__ __forceinline__ void walk(int* v, const int* kd, int gh, int gw, int 
   }
 }
 
-// One plane a warp, ppc planes a CTA: all threads stage the kind grid and
-// the planes in shared memory (coalesced loads), each warp walks its plane,
-// all threads store the planes (coalesced).
-template <int ROWS>
+// Bytes of the kind grid at the head of a staged CTA's shared memory,
+// rounded up to 8 so that planes of doubles follow it aligned.
+__host__ __device__ __forceinline__ size_t kind_bytes(size_t cells) {
+  return (cells * sizeof(int) + 7) & ~(size_t)7;
+}
+
+// One plane a warp, ppc planes a CTA.  Shared memory: the kind grid, the
+// ppc input planes, then (B) the ppc q planes, each (gh, S) with S = gw | 1.
+// All threads stage the kind grid and the input planes (coalesced loads),
+// each warp walks its plane, all threads store dq (and q; coalesced).
+template <int ROWS, typename Cell>
 __global__ void __launch_bounds__(STAGE_WARPS * 32)
-idc_dpcm_staged_kernel(const int* __restrict__ iq, const int* __restrict__ kind, int nplanes,
-                       int gh, int gw, int ppc, int* __restrict__ dq) {
-  extern __shared__ __align__(16) int sm[];
+staged_kernel(const typename Cell::In* __restrict__ x, const int* __restrict__ kind, int nplanes,
+              int gh, int gw, int ppc, Cell cell, int* __restrict__ q, int* __restrict__ dq) {
+  using T = typename Cell::In;
+  extern __shared__ __align__(16) unsigned char sm[];
   const int S = gw | 1, cells = gh * S, n = gh * gw;
   const unsigned m = gw > 1 ? 0xffffffffu / (unsigned)gw + 1 : 0;
+  int* kd = reinterpret_cast<int*>(sm);
+  T* v = reinterpret_cast<T*>(sm + kind_bytes(cells));
+  int* qs = reinterpret_cast<int*>(v + (size_t)ppc * cells);
   const long long p0 = (long long)blockIdx.x * ppc;
   const int np = (int)min((long long)ppc, nplanes - p0);
   const long long base = p0 * n;
-  stage(kind, n, gw, S, m, sm);
-  stage(iq + base, np * n, gw, S, m, sm + cells);
-  __syncthreads();
+  stage(kind, n, gw, S, m, kd);
+  stage(x + base, np * n, gw, S, m, v);
+  wait_staged();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (warp < np) walk<ROWS>(sm + cells * (warp + 1), sm, gh, gw, S, lane);
+  if (warp < np) walk<ROWS>(v + cells * warp, qs + cells * warp, kd, gh, gw, S, lane, cell);
   __syncthreads();
   for (int i = threadIdx.x; i < np * n; i += blockDim.x) {
     const int row = gw == 1 ? i : (int)__umulhi((unsigned)i, m);
-    dq[base + i] = sm[cells + row * S + i - row * gw];
+    const int c = row * S + i - row * gw;
+    dq[base + i] = dq_at(v, c);
+    if constexpr (Cell::kQ) q[base + i] = qs[c];
   }
+}
+
+// Counts the int32 dividends whose Divider quotient differs from C division:
+// 2^22 threads, 1,024 dividends each, all 2^32 in all.
+__global__ void cdiv_check_kernel(Divider dv, unsigned long long* bad) {
+  const unsigned t0 = (blockIdx.x * blockDim.x + threadIdx.x) << 10;
+  unsigned long long n = 0;
+  for (unsigned j = 0; j < 1024; ++j) {
+    const int t = (int)(t0 | j);
+    n += dv.div(t) != t / dv.d;
+  }
+  if (n) atomicAdd(bad, n);
 }
 
 struct Card {
@@ -265,6 +336,18 @@ cudaError_t card(Card* out) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&out->optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   return err;
+}
+
+// Planes a CTA of the staged walk: enough CTAs to fill the SMs, at most
+// STAGE_WARPS planes each, as many as the opt-in shared memory holds beside
+// the kind grid; 0 when not even one plane fits (the ring walk then).
+template <typename Cell>
+int staged_ppc(int nplanes, int gh, int gw, const Card& c) {
+  const size_t cells = (size_t)gh * (gw | 1);
+  int ppc = (nplanes + c.nsm - 1) / c.nsm;
+  ppc = ppc < STAGE_WARPS ? ppc : STAGE_WARPS;
+  while (ppc > 0 && kind_bytes(cells) + ppc * cells * cell_bytes<Cell>() > (size_t)c.optin) --ppc;
+  return ppc;
 }
 
 // Planes a CTA of the ring walk: as many as the opt-in holds, at most
@@ -289,37 +372,70 @@ int launch_smem(K kernel, unsigned grid, int threads, size_t smem, cudaStream_t 
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_fwd(const void* dc, const int* kind, int nplanes, int gh, int gw, int qstep,
-               int chroma, int* q, int* dq, cudaStream_t stream) {
+// Staged where the kind grid and one plane fit in the opt-in shared memory,
+// else the ring walk, which takes planes of every height the header carries.
+template <typename Cell>
+int launch(const typename Cell::In* x, const int* kind, int nplanes, int gh, int gw, Cell cell,
+           int* q, int* dq, cudaStream_t st) {
   Card c{};
-  cudaError_t err = card(&c);
+  const cudaError_t err = card(&c);
   if (err != cudaSuccess) return (int)err;
+  const int ppc = staged_ppc<Cell>(nplanes, gh, gw, c);
+  if (ppc > 0) {
+    const unsigned grid = (unsigned)((nplanes + ppc - 1) / ppc);
+    const size_t cells = (size_t)gh * (gw | 1);
+    const size_t smem = kind_bytes(cells) + ppc * cells * cell_bytes<Cell>();
+    // rows a lane of the walk holds: enough for one band at CIF luma and below
+    return gh <= 32 ? launch_smem(staged_kernel<1, Cell>, grid, STAGE_WARPS * 32, smem, st, x,
+                                  kind, nplanes, gh, gw, ppc, cell, q, dq)
+         : gh <= 64 ? launch_smem(staged_kernel<2, Cell>, grid, STAGE_WARPS * 32, smem, st, x,
+                                  kind, nplanes, gh, gw, ppc, cell, q, dq)
+                    : launch_smem(staged_kernel<4, Cell>, grid, STAGE_WARPS * 32, smem, st, x,
+                                  kind, nplanes, gh, gw, ppc, cell, q, dq);
+  }
   const int warps = ring_warps(gh, c);
   if (warps < 1) return (int)cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)((nplanes + warps - 1) / warps);
-  const size_t smem = (size_t)warps * gh * RING_ROW_BYTES;
+  return launch_smem(ring_kernel<Cell>, (unsigned)((nplanes + warps - 1) / warps), warps * 32,
+                     (size_t)warps * gh * RING_ROW_BYTES, st, x, kind, nplanes, gh, gw, cell, q,
+                     dq);
+}
+
+template <typename T>
+int launch_fwd(const void* dc, const int* kind, int nplanes, int gh, int gw, int qstep,
+               int chroma, int* q, int* dq, cudaStream_t st) {
   const T* x = static_cast<const T*>(dc);
-  return chroma ? launch_smem(dc_dpcm_kernel<T, true>, grid, warps * 32, smem, stream, x, kind,
-                              nplanes, gh, gw, qstep, q, dq)
-                : launch_smem(dc_dpcm_kernel<T, false>, grid, warps * 32, smem, stream, x, kind,
-                              nplanes, gh, gw, qstep, q, dq);
+  const Divider dv = Divider::of(qstep);
+  return chroma ? launch(x, kind, nplanes, gh, gw, Quantize<T, true>{dv}, q, dq, st)
+                : launch(x, kind, nplanes, gh, gw, Quantize<T, false>{dv}, q, dq, st);
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes by ops/dc_fused.py.  dc is
 // (nplanes, gh, gw) float or double, contiguous; kind (gh, gw) int32; q and
-// dq (nplanes, gh, gw) int32.  Planes of every height the header carries
-// are taken (up to the opt-in shared memory / 16 block rows, 14,528 on an
-// H100).  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a taller plane).
+// dq (nplanes, gh, gw) int32.  Staged when the kind grid and one plane fit
+// in the opt-in shared memory (icsp_dc_dpcm_fwd_ppc), else the ring walk,
+// which takes planes of every height the header carries (up to the opt-in
+// shared memory / 16 block rows, 14,528 on an H100).  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for a taller
+// plane).
 extern "C" int icsp_dc_dpcm_fwd(const void* dc, int is_f64, const int* kind, int nplanes,
                                 int gh, int gw, int qstep, int chroma, int* q, int* dq,
                                 void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (is_f64) return launch_fwd<double>(dc, kind, nplanes, gh, gw, qstep, chroma, q, dq, st);
   return launch_fwd<float>(dc, kind, nplanes, gh, gw, qstep, chroma, q, dq, st);
+}
+
+// The layout icsp_dc_dpcm_fwd takes for these planes on the current card:
+// planes a CTA of the staged walk, 0 for the ring walk; minus the
+// cudaError_t when the card cannot be read.
+extern "C" int icsp_dc_dpcm_fwd_ppc(int is_f64, int nplanes, int gh, int gw) {
+  Card c{};
+  const cudaError_t err = card(&c);
+  if (err != cudaSuccess) return -(int)err;
+  return is_f64 ? staged_ppc<Quantize<double, true>>(nplanes, gh, gw, c)
+                : staged_ppc<Quantize<float, true>>(nplanes, gh, gw, c);
 }
 
 // Plain C entry point of B', bound with ctypes by ops/dc_fused.py.  iq and dq
@@ -330,28 +446,20 @@ extern "C" int icsp_dc_dpcm_fwd(const void* dc, int is_f64, const int* kind, int
 // taller than the ring walk takes).
 extern "C" int icsp_dc_dpcm_inv(const int* iq, const int* kind, int nplanes, int gh, int gw,
                                 int* dq, void* stream) {
+  return launch(iq, kind, nplanes, gh, gw, Reconstruct{}, nullptr, dq,
+                static_cast<cudaStream_t>(stream));
+}
+
+// The check of B's division: for each qstep 1 .. qmax, adds to bad[qstep -
+// 1] (unsigned 64-bit counters, zeroed by the caller) the int32 dividends
+// whose Divider quotient differs from C division.  Returns
+// cudaGetLastError() after the last launch.
+extern "C" int icsp_dc_dpcm_cdiv_check(int qmax, unsigned long long* bad, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  Card c{};
-  cudaError_t err = card(&c);
-  if (err != cudaSuccess) return (int)err;
-  const size_t plane = sizeof(int) * (size_t)gh * (gw | 1);   // the kind grid takes as much
-  // enough CTAs to fill the SMs, at most STAGE_WARPS planes each
-  int ppc = (nplanes + c.nsm - 1) / c.nsm;
-  ppc = ppc < STAGE_WARPS ? ppc : STAGE_WARPS;
-  while (ppc > 0 && (ppc + 1) * plane > (size_t)c.optin) --ppc;
-  if (ppc > 0) {
-    // rows a lane of the walk holds: enough for one band at CIF luma and below
-    const unsigned grid = (unsigned)((nplanes + ppc - 1) / ppc);
-    const size_t smem = (ppc + 1) * plane;
-    return gh <= 32 ? launch_smem(idc_dpcm_staged_kernel<1>, grid, STAGE_WARPS * 32, smem, st,
-                                  iq, kind, nplanes, gh, gw, ppc, dq)
-         : gh <= 64 ? launch_smem(idc_dpcm_staged_kernel<2>, grid, STAGE_WARPS * 32, smem, st,
-                                  iq, kind, nplanes, gh, gw, ppc, dq)
-                    : launch_smem(idc_dpcm_staged_kernel<4>, grid, STAGE_WARPS * 32, smem, st,
-                                  iq, kind, nplanes, gh, gw, ppc, dq);
+  for (int d = 1; d <= qmax; ++d) {
+    cdiv_check_kernel<<<1 << 14, 256, 0, st>>>(Divider::of(d), bad + d - 1);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
-  const int warps = ring_warps(gh, c);
-  if (warps < 1) return (int)cudaErrorInvalidValue;
-  return launch_smem(idc_dpcm_ring_kernel, (unsigned)((nplanes + warps - 1) / warps), warps * 32,
-                     (size_t)warps * gh * RING_ROW_BYTES, st, iq, kind, nplanes, gh, gw, dq);
+  return 0;
 }

@@ -7,9 +7,10 @@ idc_dpcm_fused.  On a CPU tensor each wrapper runs its plain version
 launches its kernel or raises.  B is bit-identical to its plain version in
 float32 and float64; B' is all integer, so bit-identical too.  Each kernel
 has its own launch counter.  The C launchers choose the layout from the
-plane's size and the card's opt-in shared memory (B' stages a plane in
-shared memory where it fits, else walks it by the ring of B), and take
-planes of every height the header carries.
+plane's size and the card's opt-in shared memory (each stages a plane in
+shared memory where it fits, else takes the ring walk;
+forward_planes_per_cta reports B's choice), and take planes of every
+height the header carries.
 """
 from __future__ import annotations
 
@@ -43,6 +44,36 @@ def _lib_inv():
         fn.argtypes = [p, p, i, i, i, p, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def forward_planes_per_cta(nplanes: int, gh: int, gw: int, float64: bool, device) -> int:
+    """Planes a CTA of kernel B's staged walk for nplanes planes of gh x gw
+    on the card of `device`, 0 where B takes the ring walk: the launcher's
+    own choice."""
+    fn = _build.load("dc_dpcm").icsp_dc_dpcm_fwd_ppc
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 4
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        ppc = fn(int(float64), nplanes, gh, gw)
+    _build.check(max(-ppc, 0), "dc_dpcm layout query")
+    return ppc
+
+
+def division_mismatches(qstep_max: int, device) -> torch.Tensor:
+    """For each qstep 1 .. qstep_max, the int32 dividends (all 2^32 of them)
+    whose quotient by kernel B's multiply-high division differs from C
+    division on the card of `device`: (qstep_max,) int64, all zero when the
+    two agree."""
+    fn = _build.load("dc_dpcm").icsp_dc_dpcm_cdiv_check
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    bad = torch.zeros(qstep_max, dtype=torch.int64, device=device)
+    with torch.cuda.device(bad.device):
+        err = fn(qstep_max, bad.data_ptr(), _build.stream_ptr(bad.device))
+    _build.check(err, "dc_dpcm division check")
+    return bad
 
 
 def kind_grid(gh: int, gw: int, chroma: bool, device) -> torch.Tensor:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Device times of kernels A, B' and C for two checkouts of the port, in one call.
+"""Device times of kernels A, B, B' and C for two checkouts of the port, in one call.
 
     python3 kernel_ab.py OTHER_CHECKOUT [--out FILE]
 
@@ -14,9 +14,12 @@ chip_smoke.py's device_profile reads them; and of kernel B' (idc_dpcm_fused)
 on three shapes of the decode: the CIF300 chroma batch (600 planes of
 18x22, the all-intra decode's one launch) and one P-step's luma (30 planes
 of 36x44) and chroma (60 planes of 18x22), the residuals A's float32 DC
-symbols times 16.  Prints the card's name and power limit, then one JSON
-line of the four runs; --out also writes that line to FILE.  Needs one
-CUDA card.
+symbols times 16; and of kernel B (dc_dpcm_fused at qstep 16, chroma kinds)
+on the DCs of the CIF300 chroma planes in float32 and float64 (600 planes of
+18x22, the batch of an all-intra chroma chain) and on one P-step's chroma
+(the first 60 of those planes, float32).  Prints the card's name and power
+limit, then one JSON line of the four runs; --out also writes that line to
+FILE.  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -40,10 +43,13 @@ def _smoke():
 
 def child(root: pathlib.Path) -> dict:
     sys.path.insert(0, str(root))
+    import numpy as np
     import torch
 
     import icspcodec_torch
+    from icspcodec_torch.engine.intra import to_blocks
     from icspcodec_torch.ops import _build, dc_fused, intra_decode_fused, intra_fused
+    from icspcodec_torch.ops.transforms import fdct
 
     pkg = pathlib.Path(icspcodec_torch.__file__).resolve()
     if root not in pkg.parents:
@@ -51,7 +57,7 @@ def child(root: pathlib.Path) -> dict:
     cs = _smoke()
     _build.build(["intra_luma", "intra_decode", "dc_dpcm"])
     dev = torch.device("cuda")
-    y, _, _ = cs.cif_content(cs.NF)
+    y, cb, cr = cs.cif_content(cs.NF)
     yt = torch.from_numpy(y).to(dev)
     oy = yt.reshape(cs.NF, cs.H // 8, 8, cs.W // 8, 8).movedim(-3, -2)
     out = {"checkout": str(root)}
@@ -72,6 +78,14 @@ def child(root: pathlib.Path) -> dict:
                              ("p_step_chroma", iq_c[:60].contiguous(), True)):
         out[f"Bi_{name}_device_ms"] = cs.device_profile(
             lambda: dc_fused.idc_dpcm_fused(iq, chroma), 20)["device_ms"]
+    # B: the DCs of the CIF300 chroma planes
+    ct = to_blocks(torch.from_numpy(np.concatenate([cb, cr])).to(dev)).to(torch.int32)
+    for name, dtype, n in (("cif300_chroma_float32", torch.float32, 600),
+                           ("cif300_chroma_float64", torch.float64, 600),
+                           ("p_step_chroma_float32", torch.float32, 60)):
+        dc = fdct(ct[:n], dtype=dtype)[..., 0, 0].contiguous()
+        out[f"B_{name}_device_ms"] = cs.device_profile(
+            lambda: dc_fused.dc_dpcm_fused(dc, 16, chroma=True), 20)["device_ms"]
     return out
 
 
