@@ -135,12 +135,28 @@ JAX package's output.  Phases, each of which fails the run:
               recon and decoded planes, timed beside the untiled
  19. oracle   icspcodec_torch.oracle (host numpy) encodes the XCHECK input
               to the pinned stream and decodes it to the pinned planes
+ 20. api      the JAX package's last public functions: kernel A equals the
+              grid-form wavefront engine/wavefront.intra_luma_scan (plain
+              torch on the card; float64 on 8 CIF frames at QP 16/16;
+              recon, scan, mpm, mode_bit) and kernel C the decode through
+              intra_luma_decode_scan (float64, 8 frames of the phase-4
+              stream): the same loops as phases 3 and 6 reach by the packed
+              names, timed, with the grid encode's device busy share;
+              ops/me.spiral_search_fixed
+              equals -SPIRAL[best] of sad_best everywhere and of D where
+              zc < 2, and spiral_search_union's index equals stateful_select
+              over sad_union, on phase 8's benchA, synthStatic and 720p
+              inputs; the four ops/mc_fused.mc_select_* wrappers launch
+              kernel E once each and equal ops/me.gather_pred at the MVs
+              -offsets[idx], indices drawn from each whole table; the
+              searches and selects timed beside their kernels
 
 Prints a JSON `kernels` line (each kernel's event time `ms` and the
 profiler's device time `device_ms` per call of the same function; kernels
 A and C also their device time per diagonal, C its resident CTAs an SM, B'
 its device time on the three shapes a decode gives it; every kernel also
-its launches in phase 17's sharded calls and phase 18's tiled ones), the
+its launches in phase 17's sharded calls and phase 18's tiled ones, and E
+its launches by phase 20's four mc_select_* calls), the
 card's name and power limit, and as its last line {"ok": true, "device":
 {...}}.  Exits non-zero, printing no result, without a CUDA device.
 """
@@ -385,7 +401,8 @@ def max_abs(a, b) -> int:
 def profile_run(fn, wall_ms: float) -> dict:
     """torch.profiler over one call: the time of the device-side events
     (kernels and copies; CUPTI's own buffer requests left out), its share of
-    the unprofiled wall time wall_ms, and the top device events."""
+    the unprofiled wall time wall_ms, their count, and the top device
+    events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -399,6 +416,7 @@ def profile_run(fn, wall_ms: float) -> dict:
                    and not e.key.startswith("Activity Buffer")), reverse=True)
     busy = sum(r[0] for r in rows)
     return dict(device_ms=busy, busy_share=busy / wall_ms if rows else None,
+                events=sum(r[2] for r in rows),
                 top=[dict(ms=t, name=n[:70], calls=c) for t, n, c in rows[:10]])
 
 
@@ -455,7 +473,7 @@ def main() -> int:
     from icspcodec_torch.bitstream_device import frame_items_dev
     from icspcodec_torch.codec import _DEC_INTER_KEYS, _DEC_INTRA_KEYS, _INTRA_KEYS
     from icspcodec_torch.config import CodecConfig
-    from icspcodec_torch.constants import COS_DEC, SPIRAL
+    from icspcodec_torch.constants import COS_DEC, SPIRAL, SPIRAL_UNION
     from icspcodec_torch.bitstream_device import assemble_frames
     from icspcodec_torch.engine.inter import (decode_gop_mvs, decode_inter_frame,
                                               encode_inter_frame)
@@ -466,14 +484,17 @@ def main() -> int:
                                      me_fused, xform_fused)
     from icspcodec_torch.io import save_yuv420
     from icspcodec_torch.metrics import MetricsLog
-    from icspcodec_torch.ops.me import mv_diff_field, spiral_search, window_start
+    from icspcodec_torch.engine.wavefront import intra_luma_scan
+    from icspcodec_torch.ops.me import (gather_pred, mv_diff_field, spiral_search,
+                                        spiral_search_fixed, spiral_search_union,
+                                        stateful_select, window_start)
     from icspcodec_torch.ops.pad import pad_image
     from icspcodec_torch.ops.quant import c_trunc
     from icspcodec_torch.ops.transforms import fdct, idct
     from icspcodec_torch.runtime import parse_body
     from icspcodec_torch.streaming import _gop_fingerprint, encode_streaming
-    from icspcodec_torch.tables import (CHROMA_OFFSETS, NEG_SPIRAL, NEG_UNION, SPIRAL_TO_CHROMA,
-                                        pack_header)
+    from icspcodec_torch.tables import (CHROMA_OFFSETS, CHROMA_U_OFFSETS, NEG_SPIRAL, NEG_UNION,
+                                        SPIRAL_TO_CHROMA, pack_header)
 
     dev = torch.device("cuda")
     f32 = torch.float32
@@ -1455,7 +1476,7 @@ def main() -> int:
         print(f"sad_best and sad_union on {name}: bit-identical; {int((~free).sum())} MBs with "
               "zc >= 2 take the second zero, the rest D's best; sad_union = D's rows + G's",
               flush=True)
-    del kb, pb, ku, pu, kd, me_cases
+    del kb, pb, ku, pu, kd
     zc_a = me_fused.sad_best(cur_d, pad_d)[1]
     check(not bool((zc_a >= 2).any()), "benchA has an MB with zc >= 2")
     s2c = torch.from_numpy(SPIRAL_TO_CHROMA).to(dev)
@@ -1752,6 +1773,103 @@ def main() -> int:
     print(f"oracle: XCHECK stream and decoded planes equal the pinned digests "
           f"({(time.perf_counter() - t0) * 1e3:.1f} ms on the host)", flush=True)
 
+    # ---- 20. the JAX package's last public functions ----------------------
+    # kernels A and C against the grid-form wavefronts (plain torch on the
+    # card: the loops that phases 3 and 6 reach through the packed names,
+    # here through the JAX package's grid names); the fixed and union
+    # searches against sad_best (H), D where zc < 2 and sad_union (H'); the
+    # four mc_select_* wrappers (kernel E) against ops/me.gather_pred at the
+    # MVs -offsets[idx]
+    api_t0 = time.perf_counter()
+    reset_counts()
+    k = intra_fused.intra_luma_scan_fused(o8, 16, 16, dtype=torch.float64)
+    g = intra_luma_scan(o8, 16, 16, dtype=torch.float64)
+    same = {n: torch.equal(k[n].to(g[n].dtype), g[n])
+            for n in ("recon", "scan", "mpm", "mode_bit")}
+    check(all(same.values()),
+          f"kernel A float64 differs from the grid form intra_luma_scan: {same}")
+    grid_a = dict(grid_ms=event_ms(lambda: intra_luma_scan(o8, 16, 16, dtype=torch.float64), 2),
+                  kernel_ms=event_ms(lambda: intra_fused.intra_luma_scan_fused(
+                      o8, 16, 16, dtype=torch.float64), 20),
+                  diagonals=2 * (o8.shape[1] - 1) + o8.shape[2])
+    grid_prof = profile_run(lambda: intra_luma_scan(o8, 16, 16, dtype=torch.float64),
+                            grid_a["grid_ms"])
+    grid_a.update(device_ms=grid_prof["device_ms"], busy_share=grid_prof["busy_share"],
+                  device_events=grid_prof["events"],
+                  top=grid_prof["top"][:3])
+    print("kernel A float64 QP 16/16 on 8 CIF frames: equal to the grid form intra_luma_scan "
+          "(recon, scan, mpm, mode_bit)", flush=True)
+    ys8, mpm8, mbit8 = (torch.from_numpy(dsyms[n][:8]).to(dev)
+                        for n in ("y_scan", "mpm", "mode_bit"))
+    kc = intra_decode_fused.intra_luma_decode_fused(ys8, mpm8, mbit8, 16, 16, dtype=torch.float64)
+    # the plain decode: inverse zig-zag, dequantization, the inverse DC
+    # chain, the inverse DCT, then the grid form intra_luma_decode_scan
+    gc = intra_decode_fused.intra_luma_decode_plain(ys8, mpm8, mbit8, 16, 16, dtype=torch.float64)
+    check(torch.equal(kc, gc), f"kernel C float64 on 8 frames of the phase-4 stream: "
+                               f"{int((kc != gc).sum())} pixels differ from the grid form")
+    grid_c = dict(grid_ms=event_ms(lambda: intra_decode_fused.intra_luma_decode_plain(
+                      ys8, mpm8, mbit8, 16, 16, dtype=torch.float64), 2),
+                  kernel_ms=event_ms(lambda: intra_decode_fused.intra_luma_decode_fused(
+                      ys8, mpm8, mbit8, 16, 16, dtype=torch.float64), 20))
+    print("kernel C float64 on 8 frames of the phase-4 stream: equal to the decode through "
+          "the grid form intra_luma_decode_scan", flush=True)
+    del k, g, kc, gc
+    neg_s = torch.from_numpy(NEG_SPIRAL).to(dev)
+    neg_u = torch.from_numpy(NEG_UNION).to(dev)
+    for name, cur, pad in me_cases:
+        fixed = spiral_search_fixed(cur, pad)
+        kb = me_fused.sad_best(cur, pad)
+        kd = me_fused.sad_mc_best(cur, pad)
+        free = kd[1] < 2
+        check(torch.equal(fixed, neg_s[kb[0].long()]),
+              f"spiral_search_fixed on {name} differs from -SPIRAL[best] of sad_best")
+        check(torch.equal(fixed[free], neg_s[kd[0].long()][free]),
+              f"spiral_search_fixed on {name} differs from -SPIRAL[best] of D where zc < 2")
+        mv_u, best_u = spiral_search_union(cur, pad)
+        check(torch.equal(best_u, stateful_select(me_fused.sad_union(cur, pad)))
+              and torch.equal(mv_u, neg_u[best_u.long()]),
+              f"spiral_search_union on {name} differs from stateful_select over sad_union")
+        print(f"spiral_search_fixed on {name}: = sad_best's picks, and D's where zc < 2 "
+              f"({int((~free).sum())} MBs with zc >= 2); spiral_search_union = stateful_select "
+              "over sad_union", flush=True)
+    del fixed, kb, kd, mv_u, best_u
+    search_ms = dict(
+        spiral_search_fixed_ms=event_ms(lambda: spiral_search_fixed(cur_d, pad_d), 3),
+        sad_best_ms=ksb_ms,
+        spiral_search_union_ms=event_ms(lambda: spiral_search_union(cur_d, pad_d), 3),
+        sad_union_ms=ksu_ms)
+    # the MC selects: indices drawn from each whole table; kernel E once a call
+    rng = np.random.default_rng(20)
+    selects = [(mc_fused.mc_select_luma, pad_d, SPIRAL, 16),
+               (mc_fused.mc_select_chroma, padc_d, CHROMA_OFFSETS, 8),
+               (mc_fused.mc_select_luma_union, pad_d, SPIRAL_UNION, 16),
+               (mc_fused.mc_select_chroma_union, padc_d, CHROMA_U_OFFSETS, 8)]
+    sel_idx = [torch.from_numpy(rng.integers(0, len(offs), (pad.shape[0], pad.shape[1] // blk - 2,
+                                                               pad.shape[2] // blk - 2))).to(dev)
+               for _, pad, offs, blk in selects]
+    launches_api = counts()   # the checks and timings above
+    reset_counts()
+    sel_out = [fn(pad, idx) for (fn, pad, _, _), idx in zip(selects, sel_idx)]
+    torch.cuda.synchronize()
+    launches_sel = counts()
+    check(launches_sel["E"] == 4 and sum(launches_sel.values()) == 4,
+          f"the four mc_select_* wrappers did not launch kernel E once each: {launches_sel}")
+    for (fn, pad, offs, blk), idx, out in zip(selects, sel_idx, sel_out):
+        mv = torch.from_numpy(-np.asarray(offs, np.int32)).to(dev)[idx.long()]
+        check(torch.equal(out, from_blocks(gather_pred(pad, mv, blk))),
+              f"{fn.__name__} differs from gather_pred at -offsets[idx]")
+    sel_ms = {fn.__name__ + "_ms": event_ms(lambda: fn(pad, idx), 20)
+              for (fn, pad, _, _), idx in zip(selects, sel_idx)}
+    del sel_out, sel_idx, me_cases
+    launches_api = {n: launches_api[n] + launches_sel[n] for n in launches_api}
+    print("the four mc_select_* wrappers (benchA P-step: 30 luma planes, 60 chroma planes): "
+          "equal to gather_pred at -offsets[idx], kernel E once each", flush=True)
+    print("api phase on " + smi + ": " + json.dumps(dict(
+        intra_luma_scan_float64_8_cif_frames=grid_a,
+        intra_luma_decode_scan_float64_8_cif_frames=grid_c,
+        searches_benchA_p_step=search_ms, mc_select=sel_ms, launches=launches_api,
+        launches_mc_select=launches_sel, wall_s=time.perf_counter() - api_t0)), flush=True)
+
     kernels = [
         dict(name="intra_luma_wavefront", route="cuda",
              source="icspcodec_torch/csrc/intra_luma.cu",
@@ -1821,7 +1939,8 @@ def main() -> int:
                    "entry points, every P-step of two period-10 streams; times are one "
                    "decode P-step's luma, Cb and Cr in one launch (mc_gather_yc)",
              ms_two_launches=ke2_ms, device_ms_two_launches=e_times["two_launch_device_ms"],
-             path="period-10 decode", launches_period10_encode=launches_enc10["E"]),
+             path="period-10 decode", launches_period10_encode=launches_enc10["E"],
+             launches_mc_select_wrappers=launches_sel["E"]),
         dict(name="sad_mc_best", route="cuda", source="icspcodec_torch/csrc/sad_mc.cu",
              replaces="icspcodec_tpu/ops/pallas_me.py:207", launches=launches_enc10["D"],
              max_abs_err=err["D"], ms=kd_ms, device_ms=dev_ms["D"], plain_ms=pd_ms,

@@ -64,6 +64,15 @@ def vlc_encode(values: np.ndarray):
     return codes, lengths
 
 
+def pack_items(codes: np.ndarray, lengths: np.ndarray) -> bytes:
+    """Concatenate right-aligned codes MSB-first into the reference's byte
+    stream: the final partial byte keeps its bits in the LOW positions and
+    one extra zero byte is appended when the stream ends byte-aligned.
+    The native packer (runtime/vlcparse.c); item lengths must be <= 56
+    bits."""
+    return pack_items_native(codes, lengths)
+
+
 # ---------------------------------------------------------------------------
 # frame item assembly
 # ---------------------------------------------------------------------------
@@ -169,5 +178,5 @@ def write_bitstream_grouped(
     """Serialize from batched symbol groups (intra frames + inter frames)
     interleaved into display order by their frame indices."""
     rows_c, rows_l = frame_rows(intra_syms, intra_idx, inter_syms, inter_idx, nframes)
-    body = pack_items_native(np.concatenate(rows_c), np.concatenate(rows_l))
+    body = pack_items(np.concatenate(rows_c), np.concatenate(rows_l))
     return pack_header(height, width, qdc, qac, period) + body

@@ -146,3 +146,6 @@ def _spiral_state_tables():
 SPIRAL_STATES, SPIRAL_UNION, SPIRAL_STATE_IDX, SPIRAL_TRANS = _spiral_state_tables()
 N_SPIRAL_STATES = len(SPIRAL_STATES)           # 4
 N_SPIRAL_UNION = SPIRAL_UNION.shape[0]         # 129
+
+# the longest VLC code, in bits (the code lengths: bitstream.vlc_encode)
+VLC_MAX_BITS = 22

@@ -8,14 +8,17 @@ The reference walks macroblocks in raster order, but every sequential
 dependency (intra pixel prediction from reconstructed neighbours, the
 transform-domain DC DPCM chain, MPM mode prediction) reads only the left,
 upper-left, upper and upper-right neighbours on the global 8x8-block grid,
-so any topological order gives the same values.  Both functions walk the
-2*gy+gx anti-diagonals in a Python loop, each step one batched update of
-every block on the diagonal in every frame.  The JAX package packs the
-diagonals into rows and reads neighbours by lane shifts, a TPU layout
-trick; here the per-cell state stays on the (F, gh, gw) grid and each
-step gathers its neighbours by index.  Neighbour reads are clamped to the
-grid; a clamped read is only ever consumed where the JAX packed form
-reads the same cell (even luma grid widths: see intra_luma_scan_packed).
+so any topological order gives the same values.  Every function walks the
+2*gy+gx anti-diagonals of wavefront_schedule in a Python loop, each step
+one batched update of every block on the diagonal in every frame.  The
+JAX package packs the diagonals into rows and reads neighbours by lane
+shifts, a TPU layout trick; here the per-cell state stays on the
+(F, gh, gw) grid and each step gathers its neighbours by index, which is
+the JAX package's grid form.  Neighbour reads are clamped to the grid, as
+the grid form clamps them; at even luma grid widths a clamped read is
+only ever consumed where the JAX packed form reads the same cell, so the
+packed names (intra_luma_scan_packed, intra_luma_decode_scan_packed) run
+the same loops.
 
 DC predictor kinds (tables.luma_dc_kind / chroma_dc_kind): 0 -> 1024,
 1 -> left, 2 -> upper, 3 -> med(l, ul, u), 4 -> med(l, u, ur).
@@ -29,10 +32,29 @@ import torch
 
 from ..constants import COS_ENC
 from ..ops.medians import median3
-from ..ops.quant import c_div, c_trunc, dequant_block, quant_block
+from ..ops.quant import c_trunc, dequant_block, quant_block, quant_scalar
 from ..ops.scanorder import zigzag
 from ..ops.transforms import fdct, idct
-from ..tables import diag_layout, intra_lane_tables, luma_dc_kind
+from ..tables import chroma_dc_kind, diag_layout, intra_lane_tables, luma_dc_kind  # noqa: F401
+
+
+@functools.lru_cache(maxsize=None)
+def wavefront_schedule(gh: int, gw: int):
+    """Anti-diagonal schedule: (gy, gx, valid) numpy arrays of shape
+    (nsteps, nmax) covering every cell with 2*gy+gx == step; the lanes past
+    a diagonal's end hold the out-of-bounds sentinels gh and gw."""
+    diags: list[list[tuple[int, int]]] = [[] for _ in range(2 * (gh - 1) + gw)]
+    for gy in range(gh):
+        for gx in range(gw):
+            diags[2 * gy + gx].append((gy, gx))
+    nmax = max(len(d) for d in diags)
+    gys = np.full((len(diags), nmax), gh, dtype=np.int32)
+    gxs = np.full((len(diags), nmax), gw, dtype=np.int32)
+    valid = np.zeros((len(diags), nmax), dtype=bool)
+    for i, cells in enumerate(diags):
+        for j, (gy, gx) in enumerate(cells):
+            gys[i, j], gxs[i, j], valid[i, j] = gy, gx, True
+    return gys, gxs, valid
 
 
 def _dc_pred(kind, l, ul, u, ur):
@@ -48,15 +70,13 @@ def _dc_pred(kind, l, ul, u, ur):
 
 @functools.lru_cache(maxsize=None)
 def _diagonals(gh: int, gw: int, device: torch.device):
-    """Per diagonal: (gy, gx, gy-1, gx-1, gx+1) index tensors of its cells,
-    clamped to the grid, from the packed layout of tables.py; made on the
-    device once per grid."""
-    nsteps, _, pack_idx, _, _, _ = diag_layout(gh, gw)
-    valid = intra_lane_tables(gh, gw)[0]
+    """Per diagonal of wavefront_schedule: (gy, gx, gy-1, gx-1, gx+1) index
+    tensors of its cells, clamped to the grid; made on the device once per
+    grid."""
+    gys, gxs, valid = wavefront_schedule(gh, gw)
     out = []
-    for d in range(nsteps):
-        cells = pack_idx[d][valid[d]]
-        gy, gx = cells // gw, cells % gw
+    for gy, gx, ok in zip(gys.astype(np.int64), gxs.astype(np.int64), valid):
+        gy, gx = gy[ok], gx[ok]
         idx = (gy, gx, np.maximum(gy - 1, 0), np.maximum(gx - 1, 0),
                np.minimum(gx + 1, gw - 1))
         out.append(tuple(torch.from_numpy(a).to(device) for a in idx))
@@ -76,10 +96,7 @@ def dc_dpcm_scan(dc: torch.Tensor, kind: np.ndarray, qstep: int, chroma: bool):
     for gy, gx, gyu, gxl, gxr in _diagonals(gh, gw, dc.device):
         pred = _dc_pred(kind_t[gy, gx][None], dq[:, gy, gxl], dq[:, gyu, gxl],
                         dq[:, gyu, gx], dq[:, gyu, gxr])
-        resid = dc[:, gy, gx] - pred.to(dc.dtype)
-        half = resid + 0.5
-        t = torch.floor(half).to(torch.int32) if chroma else c_trunc(half)
-        qv = c_div(t, qstep)
+        qv = quant_scalar(dc[:, gy, gx] - pred.to(dc.dtype), qstep, chroma)
         q[:, gy, gx] = qv
         dq[:, gy, gx] = qv * qstep + pred
     return q, dq
@@ -166,23 +183,18 @@ def intra_encode_cells(cur, up_row, left_col, has_up, has_left, l_md, ul_md, u_m
     return rec, mode, iq[..., 0, 0], q, flag, bit
 
 
-def intra_luma_scan_packed(orig: torch.Tensor, qdc: int, qac: int,
-                           table=COS_ENC, dtype=torch.float64):
+def intra_luma_scan(orig: torch.Tensor, qdc: int, qac: int, table=COS_ENC,
+                    dtype=torch.float64):
     """Encode one batch of intra luma planes along the wavefront.
 
     orig: (F, gh, gw, 8, 8) int original blocks.  Returns dict with recon
-    (F,gh,gw,8,8) int32, scan (F,gh,gw,64) int32 in zig-zag order and
-    mpm / mode_bit (F,gh,gw) int32 -- the contract of the JAX package's
-    intra_luma_scan_packed, computed expression for expression.
-
-    Odd grid widths are refused: there the right-edge kind-4 cells read an
-    upper-right neighbour that does not exist, and the JAX packed and grid
-    forms already disagree on what it holds.  Luma gw = W/8 with
-    W % 16 == 0 is always even.
+    (F,gh,gw,8,8) int32, modes (F,gh,gw) int32, scan (F,gh,gw,64) int32 in
+    zig-zag order and mpm / mode_bit (F,gh,gw) int32 -- the contract of the
+    JAX package's intra_luma_scan (the grid form).  Takes odd grid widths
+    too: there a right-edge cell reads its upper neighbour as the
+    upper-right one, as the JAX grid form does.
     """
     fdim, gh, gw = orig.shape[:3]
-    if gw % 2:
-        raise ValueError(f"the intra luma wavefront needs an even block-grid width; got gw={gw}")
     dev = orig.device
     kind_g = torch.from_numpy(luma_dc_kind(gh, gw)).to(dev)
     i32 = dict(dtype=torch.int32, device=dev)
@@ -209,7 +221,25 @@ def intra_luma_scan_packed(orig: torch.Tensor, qdc: int, qac: int,
         scanq[:, gy, gx] = zigzag(q)
         mpmf[:, gy, gx] = flag.to(torch.int32)
         mbit[:, gy, gx] = bit
-    return dict(recon=recon, scan=scanq, mpm=mpmf, mode_bit=mbit)
+    return dict(recon=recon, modes=modes, scan=scanq, mpm=mpmf, mode_bit=mbit)
+
+
+def intra_luma_scan_packed(orig: torch.Tensor, qdc: int, qac: int,
+                           table=COS_ENC, dtype=torch.float64):
+    """intra_luma_scan without `modes`: the contract of the JAX package's
+    intra_luma_scan_packed, whose values it equals.
+
+    Odd grid widths are refused: there the right-edge kind-4 cells read an
+    upper-right neighbour that does not exist, and the JAX packed and grid
+    forms already disagree on what it holds.  Luma gw = W/8 with
+    W % 16 == 0 is always even.
+    """
+    gw = orig.shape[2]
+    if gw % 2:
+        raise ValueError(f"the intra luma wavefront needs an even block-grid width; got gw={gw}")
+    out = intra_luma_scan(orig, qdc, qac, table=table, dtype=dtype)
+    del out["modes"]
+    return out
 
 
 def intra_decode_cells(rr, up_row, left_col, has_up, has_left, l_md, ul_md, u_md, fl, bt,
@@ -241,16 +271,17 @@ def intra_decode_cells(rr, up_row, left_col, has_up, has_left, l_md, ul_md, u_md
     return torch.clamp(c_trunc(rr + predsel), 0, 255), mode
 
 
-def intra_luma_decode_scan_packed(r: torch.Tensor, mpmf: torch.Tensor, mbit: torch.Tensor,
-                                  dtype=torch.float64):
+def intra_luma_decode_scan(r: torch.Tensor, mpmf: torch.Tensor, mbit: torch.Tensor,
+                           dtype=torch.float64):
     """Reconstruct intra luma pixels from inverse-DCT blocks and mode bits.
 
     r: (F, gh, gw, 8, 8) float inverse-DCT output (DC chain already applied);
     mpmf / mbit: (F, gh, gw) MPM flag and remainder bit.  Returns recon
     blocks (F, gh, gw, 8, 8) int32: the contract of the JAX package's
-    intra_luma_decode_scan_packed, computed expression for expression.  The
-    mode is the MPM prediction when the flag is set, else the remainder bit
-    picks one of the other two modes (IDPCM_pix_block dec src:3643-3990).
+    intra_luma_decode_scan and intra_luma_decode_scan_packed, which agree
+    (the decoder reads no upper-right neighbour).  The mode is the MPM
+    prediction when the flag is set, else the remainder bit picks one of
+    the other two modes (IDPCM_pix_block dec src:3643-3990).
     """
     fdim, gh, gw = r.shape[:3]
     dev = r.device
@@ -270,3 +301,6 @@ def intra_luma_decode_scan_packed(r: torch.Tensor, mpmf: torch.Tensor, mbit: tor
         br[:, gy, gx] = rec[..., 7, :]
         modes[:, gy, gx] = mode
     return recon
+
+
+intra_luma_decode_scan_packed = intra_luma_decode_scan

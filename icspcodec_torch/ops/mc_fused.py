@@ -4,11 +4,12 @@ version.
 Counterpart of icspcodec_tpu/ops/pallas_me.py::_mc_select.  mc_gather builds
 the predictor planes from per-block MVs; mc_gather_yc builds the decoder's
 luma and both chroma predictors in one launch, from the luma MVs; mc_select
-is the exact counterpart of the JAX mc_select_* wrappers (per-block indices
-into an offset table, MV = -offset).  On a CPU tensor each wrapper runs the
-plain version (ops/me.gather_pred, blocks laid out as planes); on a CUDA
-tensor it launches the kernel or raises.  Both are integer copies:
-bit-identical.
+takes per-block indices into an offset table (MV = -offset), and the
+mc_select_* wrappers are the JAX package's four entry points on it, with
+best_from_mv / best_from_mv_union mapping MVs back to indices.  On a CPU
+tensor each wrapper runs the plain version (ops/me.gather_pred, blocks laid
+out as planes); on a CUDA tensor it launches the kernel or raises.  Both are
+integer copies: bit-identical.
 """
 from __future__ import annotations
 
@@ -18,7 +19,9 @@ import functools
 import numpy as np
 import torch
 
+from ..constants import SPIRAL, SPIRAL_UNION
 from ..engine.intra import from_blocks
+from ..tables import CHROMA_OFFSETS, CHROMA_U_OFFSETS, NEG_SPIRAL, NEG_UNION
 from .me import device_table, gather_pred
 from . import _build
 
@@ -146,3 +149,55 @@ def mc_select(pad: torch.Tensor, idx: torch.Tensor, offsets, block: int) -> torc
     W/block) integer; the MV of a block is -offsets[idx]."""
     neg = device_table(-np.asarray(offsets, np.int32), pad.device)
     return mc_gather(pad, neg[idx.to(torch.int64)], block)
+
+
+def mc_select_luma(pad: torch.Tensor, best: torch.Tensor) -> torch.Tensor:
+    """Luma predictor planes from spiral indices (16-px pad, 16x16 MBs)."""
+    return mc_select(pad, best, SPIRAL, 16)
+
+
+def mc_select_chroma(pad: torch.Tensor, cidx: torch.Tensor) -> torch.Tensor:
+    """Chroma predictor planes from chroma offset indices (8-px pad, 8x8
+    blocks); cidx = SPIRAL_TO_CHROMA[best]."""
+    return mc_select(pad, cidx, CHROMA_OFFSETS, 8)
+
+
+def mc_select_luma_union(pad: torch.Tensor, best_u: torch.Tensor) -> torch.Tensor:
+    """Luma predictor planes from union offset indices (the stateful
+    search: an MV may be any of the 129 offsets)."""
+    return mc_select(pad, best_u, SPIRAL_UNION, 16)
+
+
+def mc_select_chroma_union(pad: torch.Tensor, cidx_u: torch.Tensor) -> torch.Tensor:
+    """Chroma predictor planes from chroma-union offset indices (cidx_u =
+    UNION_TO_CHROMA_U[best_u])."""
+    return mc_select(pad, cidx_u, CHROMA_U_OFFSETS, 8)
+
+
+def _table_index(mv: torch.Tensor, neg: np.ndarray) -> torch.Tensor:
+    """The first row of neg equal to each MV (..., 2), int32; 0 for an MV
+    in no row."""
+    t = device_table(neg, mv.device)
+    eq = (mv[..., None, 0] == t[:, 0]) & (mv[..., None, 1] == t[:, 1])
+    return torch.argmax(eq.to(torch.uint8), dim=-1).to(torch.int32)
+
+
+def best_from_mv(mv: torch.Tensor) -> torch.Tensor:
+    """Map MVs (..., 2) back to spiral indices (decode side: every
+    bitstream MV is -SPIRAL[k]; duplicates resolve to the first index,
+    which selects the identical window).
+
+    PRECONDITION: every MV is one of the 64 spiral offsets, as in any
+    stream this encoder or the reference produced.  An MV outside the
+    table (a corrupt or foreign stream) maps to index 0 without notice;
+    a caller that must catch it validates the MVs first or takes
+    mc_gather, which takes any MV."""
+    return _table_index(mv, NEG_SPIRAL)
+
+
+def best_from_mv_union(mv: torch.Tensor) -> torch.Tensor:
+    """Map MVs (..., 2) to union-offset indices (the stateful search: every
+    bitstream MV is -SPIRAL_UNION[k]; the union rows are unique, so the
+    match is exact).  Same precondition as best_from_mv: an MV outside the
+    table maps to index 0."""
+    return _table_index(mv, NEG_UNION)

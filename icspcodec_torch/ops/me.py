@@ -16,8 +16,11 @@ the reference's rule is applied afterwards:
 
 spiral_search is the plain reference of the whole search: the canonical
 selection, and only when some MB breaks early the union offsets and the
-state composition.  The fused search of the encoder (ops/me_fused.py,
-kernels D and G) produces the SADs these selections consume.
+state composition.  Its two halves are public too, as in the JAX package:
+spiral_search_fixed (every MB walks the canonical spiral) and
+spiral_search_union (always the union offsets and the composition).  The
+fused search of the encoder (ops/me_fused.py, kernels D and G) produces the
+SADs these selections consume.
 
 gather_pred is the plain version of kernel E (ops/mc_fused.py): each
 (bs x bs) predictor block is read from the padded previous frame at
@@ -33,8 +36,8 @@ import functools
 import numpy as np
 import torch
 
-from ..constants import N_SPIRAL_STATES, SPIRAL_STATE_IDX, SPIRAL_TRANS, SPIRAL_UNION
-from ..tables import N_CANON, NEG_UNION
+from ..constants import N_SPIRAL_STATES, SPIRAL, SPIRAL_STATE_IDX, SPIRAL_TRANS, SPIRAL_UNION
+from ..tables import N_CANON, NEG_SPIRAL, NEG_UNION
 from .medians import median3, median3_mv_y
 
 
@@ -134,6 +137,22 @@ def stateful_select(sads_u: torch.Tensor) -> torch.Tensor:
     """The full stateful selection from the union SADs (..., 129, mbh, mbw):
     the chosen union offset index (..., mbh, mbw) int32."""
     return compose_select(*state_tables(sads_u))
+
+
+def spiral_search_fixed(cur_y: torch.Tensor, pad_prev: torch.Tensor, bs: int = 16) -> torch.Tensor:
+    """The fixed-table search (every MB walks the canonical spiral): mv
+    (..., mbh, mbw, 2) int32, -SPIRAL[best].  Exact on break-free content;
+    the hybrid's fast branch."""
+    best, _ = _select_from_seq(sad_dense(cur_y, pad_prev, SPIRAL, bs))
+    return device_table(NEG_SPIRAL, cur_y.device)[best.to(torch.int64)]
+
+
+def spiral_search_union(cur_y: torch.Tensor, pad_prev: torch.Tensor, bs: int = 16):
+    """The stateful-exact search over the full union SADs: (mv (..., mbh,
+    mbw, 2) int32, best union-offset index (..., mbh, mbw) int32).  Always
+    computes all 129 offsets; spiral_search is the gated hybrid."""
+    best = stateful_select(sad_dense(cur_y, pad_prev, SPIRAL_UNION, bs))
+    return device_table(NEG_UNION, cur_y.device)[best.to(torch.int64)], best
 
 
 def spiral_search(cur_y: torch.Tensor, pad_prev: torch.Tensor, bs: int = 16) -> torch.Tensor:

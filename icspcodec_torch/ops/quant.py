@@ -22,12 +22,18 @@ def c_div(a: torch.Tensor, q) -> torch.Tensor:
     return torch.div(a.to(torch.int32), q, rounding_mode="trunc")
 
 
+def quant_scalar(v: torch.Tensor, qstep, chroma: bool) -> torch.Tensor:
+    """Quantize values of any shape with one step (the sequential DC
+    chain quantizes its residuals one at a time)."""
+    half = v + 0.5
+    t = torch.floor(half).to(torch.int32) if chroma else c_trunc(half)
+    return c_div(t, qstep)
+
+
 def quant_block(dct: torch.Tensor, qdc, qac, chroma: bool) -> torch.Tensor:
     """Quantize (..., 8, 8) DCT blocks (DC at [0,0] uses qdc)."""
-    half = dct + 0.5
-    t = torch.floor(half).to(torch.int32) if chroma else c_trunc(half)
-    q = c_div(t, qac)
-    q[..., 0, 0] = c_div(t[..., 0, 0], qdc)
+    q = quant_scalar(dct, qac, chroma)
+    q[..., 0, 0] = quant_scalar(dct[..., 0, 0], qdc, chroma)
     return q
 
 

@@ -21,7 +21,7 @@ import sys
 import numpy as np
 import torch
 
-from .gop import mesh_for
+from .gop import gop_mesh
 
 
 def _group():
@@ -58,13 +58,10 @@ def process_index() -> int:
     return 0 if dist is None else dist.get_rank()
 
 
-def global_gop_mesh(devices=None) -> list[torch.device]:
-    """This process's share of the global `gop` mesh: its local device list
-    (every local CUDA device when None).  The global mesh is these lists
-    of all processes in rank order."""
-    if devices is None:
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    return mesh_for(len(devices), devices)
+# this process's share of the global `gop` mesh: its local device list
+# (every local CUDA device when None); the global mesh is these lists of
+# all processes in rank order
+global_gop_mesh = gop_mesh
 
 
 def host_local_gop_batch(y, cb, cr, mesh):

@@ -20,6 +20,7 @@ A list may name one device more than once (["cpu"] * 3 in the tests,
 """
 from __future__ import annotations
 
+import functools
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -31,17 +32,25 @@ from ..engine.inter import encode_gop
 from ..engine.intra import decode_intra_frames, encode_intra_frames
 
 
-def mesh_for(shards: int, devices=None, axis: str = "gop") -> list[torch.device]:
+def mesh_for(shards: int | None = None, devices=None, axis: str = "gop") -> list[torch.device]:
     """The device list of a sharded encode or decode along `axis` ("gop" or
-    "tile"): the first `shards` of `devices`, or of every CUDA device when
-    None (both precisions run on the card: its float64 is IEEE).
-    ValueError when there are fewer."""
+    "tile"): the first `shards` of `devices` (all of them when None), or of
+    every CUDA device when `devices` is None.  A list of torch.devices
+    stands in for a JAX Mesh; it has no `exact` flag, since both precisions
+    run on the card (its float64 is IEEE).  ValueError when there are fewer
+    devices, or none."""
     if devices is None:
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     devices = [torch.device(d) for d in devices]
+    if shards is None:
+        shards = max(len(devices), 1)
     if len(devices) < shards:
         raise ValueError(f"{axis}_shards={shards} but only {len(devices)} devices are available")
     return devices[:shards]
+
+
+# the JAX package's gop_mesh(devices=None): the `gop` list over all devices
+gop_mesh = functools.partial(mesh_for, None)
 
 
 def _pad_to(n: int, mult: int) -> int:

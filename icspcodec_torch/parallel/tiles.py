@@ -57,6 +57,11 @@ from ..ops.scanorder import izigzag, zigzag
 from ..ops.transforms import idct
 from ..ops.xform_fused import xform_fwd_fused
 from ..tables import NEG_UNION, luma_dc_kind
+from .gop import mesh_for
+
+
+# the JAX package's tile_mesh_for(shards, devices=None)
+tile_mesh_for = functools.partial(mesh_for, axis="tile")
 
 
 # ---------------------------------------------------------------------------
