@@ -89,9 +89,10 @@ JAX package's output.  Phases, each of which fails the run:
               3 on static-trigger content) and the decoded planes' digests
               of two small streams equal the pinned JAX ones; a CIF encode
               of 4 frames, an exact CIF synthStatic GOP (10 frames) and a
-              CIF decode of one GOP (10 frames) give the same bytes and
-              planes on the card and the CPU; three configurations of the
-              C++ reference's golden set (tests/golden/MANIFEST.sha256:
+              CIF decode of one GOP (10 frames: the first GOP of phase 12's
+              seeded stream, written as a stream of its own) give the same
+              bytes and planes on the card and the CPU; three
+              configurations of the C++ reference's golden set (tests/golden/MANIFEST.sha256:
               synthA QP 16/16 all-intra, synthB 8/8 and synthStatic 1/1 at
               period 10; 32 CIF frames each) encoded and decoded on the
               card in exact mode: the stream, encoder-recon and decoder
@@ -134,7 +135,9 @@ JAX package's output.  Phases, each of which fails the run:
               three hashes; fast mode on 30 frames gives the untiled bytes,
               recon and decoded planes, timed beside the untiled
  19. oracle   icspcodec_torch.oracle (host numpy) encodes the XCHECK input
-              to the pinned stream and decodes it to the pinned planes
+              to the pinned stream and decodes it, its final byte realigned
+              (the oracle reads that byte MSB-first, as the reference does),
+              to the pinned planes
  20. api      the JAX package's last public functions: kernel A equals the
               grid-form wavefront engine/wavefront.intra_luma_scan (plain
               torch on the card; float64 on 8 CIF frames at QP 16/16;
@@ -150,6 +153,18 @@ JAX package's output.  Phases, each of which fails the run:
               kernel E once each and equal ops/me.gather_pred at the MVs
               -offsets[idx], indices drawn from each whole table; the
               searches and selects timed beside their kernels
+ 21. tail     the stream tail: the seeded set of
+              tests/test_torch_stream_tail.py (TAIL_CASES: uniform noise and
+              a gradient plus noise, 5 frames of 64x96, exact and fast, QP
+              1/1 and 8/16, all-intra and period 3), 10 seeds a case,
+              encoded and decoded on the card (codec.encode_symbols and the
+              writer, then codec.decode, launches counted): every stream
+              parses to its writer's symbols or is refused as ambiguous with
+              the writer's reading among two or more, the decode refuses the
+              same streams, and its planes equal the CPU's decode (exact) or
+              lie within 0.05 dB of the recon's PSNR-Y (fast); the counts of
+              right, ambiguous, raised and wrong streams printed; a raised
+              or wrong one fails
 
 Prints a JSON `kernels` line (each kernel's event time `ms` and the
 profiler's device time `device_ms` per call of the same function; kernels
@@ -190,8 +205,12 @@ XCHECK_CFG = dict(width=96, height=64, qp_dc=8, qp_ac=16, precision="exact")
 XCHECK_SHA256 = "08ece079fe3b9aa18c9654c2066c7f422a57f3fdec12f4f1559c49e8e50b3413"
 # sha256 of the exact-mode decoded planes (planes_digest) of the XCHECK
 # stream and of inter_xcheck_stream(); tests/test_torch_decode.py pins both
-# to the JAX package's decode
-XCHECK_DECODE_SHA256 = "7b1d8295e362cc9c21563b908661197647add23507d8d349a8ea199ae0447dac"
+# to the JAX package's decode of the stream as written (its final byte's
+# bits moved to the high end, which the JAX parser needs)
+XCHECK_DECODE_SHA256 = "3f1147592f6ee7e1137d68f6f3ea79f1cd86c73a297212d705df9eeaa50ede76"
+# the bits of the XCHECK stream's final byte (its writer's remainder; the
+# only reading of that byte, tests/test_torch_decode.py)
+XCHECK_TAIL_BITS = 6
 INTER_XCHECK = dict(height=64, width=96, qdc=8, qac=16, period=3, nframes=5)
 # the exact-mode period-3 encode of static_trigger_input(): its zero-SAD
 # breaks run the stateful branch; tests/test_torch_inter_encode.py pins the
@@ -315,6 +334,86 @@ def inter_xcheck_stream() -> bytes:
     to_t = lambda d: {k: torch.from_numpy(v) for k, v in d.items()}  # noqa: E731
     return write_gop_stream(to_t(si), to_t(sp), torch.from_numpy(mv), f, h, w, c["qdc"],
                             c["qac"], period)
+
+
+# the seeded set of the stream-tail check (phase 21 and
+# tests/test_torch_stream_tail.py): 5 frames of 64x96 of each content, in
+# both precisions, at QP 1/1 and 8/16, all-intra and at period 3
+TAIL_CASES = [dict(kind=kind, precision=prec, qp_dc=qdc, qp_ac=qac, intra_period=period)
+              for kind in ("noise", "gradient") for prec in ("exact", "fast")
+              for qdc, qac in ((1, 1), (8, 16)) for period in (0, 3)]
+TAIL_SHAPE = dict(nframes=5, height=64, width=96)
+TAIL_SEEDS = 10               # seeds 0 .. 9 of each case on the card
+
+
+def tail_content(kind: str, seed: int, f: int = 5, h: int = 64, w: int = 96,
+                 sigma: float = 20.0):
+    """Seeded planes whose streams end in noisy bits: "noise" is uniform in
+    0..255 (y, then cb, then cr from default_rng(seed)); "gradient" a
+    diagonal ramp on each plane plus gaussian noise of sigma levels."""
+    rng = np.random.default_rng(seed)
+    shapes = ((f, h, w), (f, h // 2, w // 2), (f, h // 2, w // 2))
+    if kind == "noise":
+        return tuple(rng.integers(0, 256, s, dtype=np.uint8) for s in shapes)
+    out = []
+    for s in shapes:
+        yy, xx = np.mgrid[0:s[1], 0:s[2]]
+        ramp = 40 + 85 * (xx / s[2] + yy / s[1])
+        out.append(np.clip(ramp[None] + rng.normal(0, sigma, s), 0, 255).astype(np.uint8))
+    return tuple(out)
+
+
+def tail_stream(y, cb, cr, cfg, device):
+    """codec.encode's two halves, kept apart: the engines
+    (codec.encode_symbols) on device, then the writer (codec.packed_rows and
+    assemble_frames, as codec.write_stream runs them, keeping the bit count).
+    Returns (bytes, the writer's symbols as runtime.parse_body returns them
+    (codec.host_symbols: numpy, display order), the writer's bit count, the
+    recon planes as numpy)."""
+    import torch
+
+    from icspcodec_torch import codec
+    from icspcodec_torch.bitstream_device import assemble_frames
+    from icspcodec_torch.tables import pack_header
+
+    nf = y.shape[0]
+    (isyms, iidx), inter, rec = codec.encode_symbols(
+        *(torch.from_numpy(a).to(device) for a in (y, cb, cr)), cfg)
+    psyms, pidx = inter if inter is not None else (None, None)
+    rows, nbits = codec.packed_rows(isyms, iidx, psyms, pidx, nf)
+    bits = pack_header(cfg.height, cfg.width, cfg.qp_dc, cfg.qp_ac, cfg.intra_period) \
+        + assemble_frames(rows, nbits)
+    want = {}
+    for syms, idx in ((codec.host_symbols(isyms), iidx), (codec.host_symbols(psyms), pidx)):
+        for k, v in (syms or {}).items():
+            want.setdefault(k, np.zeros((nf,) + v.shape[1:], v.dtype))[idx] = v
+    return bits, want, sum(nbits), {k: v.cpu().numpy() for k, v in rec.items()}
+
+
+def realign_tail(body: bytes, rem: int) -> bytes:
+    """The stream body with its final byte's low rem bits moved to its high
+    end: the bytes an MSB-first reader reads as the writer wrote them."""
+    return body[:-1] + bytes([(body[-1] << (8 - rem)) & 0xFF if rem else body[-1]])
+
+
+def tail_verdict(bits: bytes, want: dict, nbits: int, nframes: int, period: int) -> str:
+    """How the port's parser reads a stream whose writer's symbols and bit
+    count are known: "right" (the writer's symbols), "ambiguous" (refused,
+    naming the writer's reading among two or more), "raised" (another
+    ValueError) or "wrong" (other symbols, or an ambiguity that leaves the
+    writer's reading out)."""
+    from icspcodec_torch.runtime import parse_body
+    from icspcodec_torch.tables import parse_header
+
+    h, w = parse_header(bits[:14])[:2]
+    try:
+        got = parse_body(bits[14:], nframes, h, w, period)
+    except ValueError as e:
+        if not hasattr(e, "readings"):
+            return "raised"
+        return "ambiguous" if nbits % 8 in e.readings and len(e.readings) > 1 else "wrong"
+    same = set(got) >= set(want) and all(np.array_equal(got[k], v) for k, v in want.items())
+    return "right" if same else "wrong"
 
 
 def cif_content(nframes: int, name: str = "benchA"):
@@ -491,7 +590,7 @@ def main() -> int:
     from icspcodec_torch.ops.pad import pad_image
     from icspcodec_torch.ops.quant import c_trunc
     from icspcodec_torch.ops.transforms import fdct, idct
-    from icspcodec_torch.runtime import parse_body
+    from icspcodec_torch.runtime import AmbiguousTailError, parse_body
     from icspcodec_torch.streaming import _gop_fingerprint, encode_streaming
     from icspcodec_torch.tables import (CHROMA_OFFSETS, CHROMA_U_OFFSETS, NEG_SPIRAL, NEG_UNION,
                                         SPIRAL_TO_CHROMA, pack_header)
@@ -1287,6 +1386,13 @@ def main() -> int:
         frames=NF, bytes=len(p10), mvs=mv.size // 2, noncanonical_mvs=nc, decode_ms=p10s_ms,
         decode_fps=NF / (p10s_ms / 1e3),
         psnr_y_intra_frames_db=psnr(dec10s["y"][::period], y[::period]))), flush=True)
+    # its first GOP, a stream of its own: phase 13 decodes it on the card and
+    # the CPU (a stream holds exactly the frames it is decoded for)
+    p10_gop = write_gop_stream({n: v[:1] for n, v in isyms.items()},
+                               {n: torch.from_numpy(v[:period - 1]).to(dev)
+                                for n, v in psyms.items()},
+                               torch.from_numpy(mv[:period - 1]).to(dev), period, H, W, 16, 16,
+                               period)
     del isyms, psyms, dec10s
 
     # mc_gather_yc against plain at every P-step of both period-10 streams:
@@ -1404,8 +1510,8 @@ def main() -> int:
           f"the exact synthStatic GOP did not launch kernels D, F and G: {launches_x}")
     print(f"xcheck: exact-mode CIF synthStatic GOP ({period} frames, {len(bg)} bytes) and recon "
           "identical on the card and the CPU", flush=True)
-    dg = codec.decode(p10, period, precision="exact")
-    dcpu = codec.decode(p10, period, precision="exact", device="cpu")
+    dg = codec.decode(p10_gop, period, precision="exact")
+    dcpu = codec.decode(p10_gop, period, precision="exact", device="cpu")
     check(all(np.array_equal(dg[n], dcpu[n]) for n in dg),
           "exact-mode CIF decode of one GOP differs between the card and the CPU")
     print(f"xcheck: exact-mode CIF decode of one GOP ({period} frames) identical on the card "
@@ -1765,7 +1871,9 @@ def main() -> int:
     t0 = time.perf_counter()
     ob = oracle.encode(list(zip(*xcheck_input())), XCHECK_CFG["qp_dc"], XCHECK_CFG["qp_ac"],
                        0)[0]
-    od = oracle.decode(ob, 2)
+    # the oracle, a copy of the reference, reads the final byte MSB-first:
+    # it decodes the stream as written once that byte's bits are moved high
+    od = oracle.decode(ob[:14] + realign_tail(ob[14:], XCHECK_TAIL_BITS), 2)
     check(hashlib.sha256(ob).hexdigest() == XCHECK_SHA256,
           "the port's oracle does not give the pinned XCHECK stream")
     check(planes_digest({k: np.stack([getattr(r, k) for r in od]) for k in ("y", "cb", "cr")})
@@ -1869,6 +1977,56 @@ def main() -> int:
         intra_luma_decode_scan_float64_8_cif_frames=grid_c,
         searches_benchA_p_step=search_ms, mc_select=sel_ms, launches=launches_api,
         launches_mc_select=launches_sel, wall_s=time.perf_counter() - api_t0)), flush=True)
+
+    # ---- 21. the stream tail ---------------------------------------------
+    # the seeded set of tests/test_torch_stream_tail.py, TAIL_SEEDS seeds a
+    # case, encoded and decoded on the card: each stream parses to its
+    # writer's symbols or is refused as ambiguous (the writer's reading among
+    # two or more); the card's decode refuses the same streams, and its
+    # planes equal the CPU's decode (exact) or lie within 0.05 dB of the
+    # recon's PSNR-Y (fast)
+    tail_t0 = time.perf_counter()
+    tf, th, tw = (TAIL_SHAPE[n] for n in ("nframes", "height", "width"))
+    tally = {prec: {"right": 0, "ambiguous": 0, "raised": 0, "wrong": 0}
+             for prec in ("exact", "fast")}
+    faults, tails, launches_tail = [], [0] * 8, {n: 0 for n in counts()}
+    for case in TAIL_CASES:
+        prec, period_t = case["precision"], case["intra_period"]
+        tcfg_t = CodecConfig(width=tw, height=th, qp_dc=case["qp_dc"], qp_ac=case["qp_ac"],
+                             intra_period=period_t, precision=prec)
+        for seed in range(TAIL_SEEDS):
+            planes = tail_content(case["kind"], seed)
+            bits_t, want_t, nbits_t, rec_t = tail_stream(*planes, tcfg_t, dev)
+            verdict = tail_verdict(bits_t, want_t, nbits_t, tf, period_t)
+            tails[nbits_t % 8] += 1
+            reset_counts()
+            try:
+                dec_t = codec.decode(bits_t, tf, precision=prec)
+            except AmbiguousTailError:
+                dec_t = None
+            torch.cuda.synchronize()
+            launches_tail = {n: launches_tail[n] + v for n, v in counts().items()}
+            if verdict == "right" and dec_t is not None:
+                if prec == "exact":
+                    ref_t = codec.decode(bits_t, tf, precision=prec, device="cpu")
+                    same = all(np.array_equal(dec_t[n], ref_t[n]) for n in ref_t)
+                else:
+                    same = abs(psnr(dec_t["y"], planes[0]) - psnr(rec_t["y"], planes[0])) <= 0.05
+                verdict = verdict if same else "wrong"
+            elif verdict != "raised" and not (verdict == "ambiguous" and dec_t is None):
+                verdict = "wrong"
+            tally[prec][verdict] += 1
+            if verdict in ("raised", "wrong"):
+                faults.append(dict(case, seed=seed, verdict=verdict))
+    n_tail = sum(sum(t.values()) for t in tally.values())
+    check(not faults, f"stream tail: {len(faults)} of {n_tail} streams read wrong or raised: "
+                      f"{faults[:5]}")
+    check(all(launches_tail[n] >= 1 for n in ("C", "B'", "E")),
+          f"the stream-tail decodes did not launch kernels C, B' and E: {launches_tail}")
+    print(f"stream tail ({n_tail} seeded {th}x{tw} streams of {tf} frames, encoded and decoded "
+          "on the card): " + json.dumps(dict(
+              counts=tally, writer_remainders=tails, decode_launches=launches_tail,
+              wall_s=time.perf_counter() - tail_t0)), flush=True)
 
     kernels = [
         dict(name="intra_luma_wavefront", route="cuda",

@@ -363,9 +363,16 @@ def decode(data: bytes, nframes: int, precision: str = "exact", device=None,
     (F, ...) uint8 numpy planes.
 
     precision: "exact" (float64: the JAX package's exact planes, byte for
-    byte) or "fast" (float32).  device: where to run; None means the CUDA
-    card, and raises when there is none; device="cpu" runs the plain
-    versions of the kernels (the tests do).
+    byte, of the stream as written: its final byte realigned, as the JAX
+    parser needs) or "fast" (float32).  device: where to run; None means
+    the CUDA card, and raises when there is none; device="cpu" runs the
+    plain versions of the kernels (the tests do).
+
+    The stream must hold exactly nframes frames: runtime.parse_body reads
+    its final byte as the writer writes it and raises ValueError when no
+    reading of that byte ends the stream ("truncated bitstream", also for a
+    stream holding more frames) or when two do with different symbols
+    (runtime.AmbiguousTailError).
 
     gop_shards > 1 decodes the GOP batches split over a list of devices
     (parallel/gop.py), tile_shards > 1 each frame's MB columns split over

@@ -2,11 +2,27 @@
 (runtime/vlcparse.c), built by the host compiler at first use into
 build/icspcodec_torch/ (ops/_build.py) and bound with ctypes.
 
-A copy of the JAX package's runtime.parse_body with narrow outputs: every
-symbol of a stream the parser accepts fits int16 (the parser rejects VLC
-exponents beyond the encoder's domain), so coefficients and MV differences
-come back as int16 and flags as int8.  The values equal the JAX parser's.
-pack_items_native is the JAX package's packer (runtime/__init__.py there).
+The JAX package's runtime.parse_body with three changes:
+
+- narrow outputs: every symbol of a stream the parser accepts fits int16
+  (the parser rejects VLC exponents beyond the encoder's domain), so
+  coefficients and MV differences come back as int16 and flags as int8;
+- the stream's tail is read the way the writer writes it.  The writer
+  (pack_items, bitstream_device.assemble_frames: the reference's
+  convention) keeps the final partial byte's r bits in its LOW positions
+  and appends a zero byte to a byte-aligned stream; the JAX parser reads
+  every byte MSB-first, so it can misread the last bits of any stream
+  whose final byte is not zero.  Here each r with t < 2^r (t the final byte) is
+  a reading, accepted when the stream parses to exactly 8*(nbytes-1) + r
+  bits with t moved to its high end;
+- the end is checked: no accepted reading raises "truncated bitstream"
+  (cut short, bytes appended, or a frame count other than the stream's),
+  and readings that give different symbols raise "ambiguous stream tail":
+  the reference's format cannot tell them apart, so no guess is returned.
+
+On every other stream the values equal the JAX parser's reading of the
+stream with its final byte moved to its high end.  pack_items_native is
+the JAX package's packer (runtime/__init__.py there).
 """
 from __future__ import annotations
 
@@ -17,17 +33,32 @@ import numpy as np
 from ..ops import _build
 
 _ERRORS = {
-    -1: "truncated bitstream",
+    -1: "truncated bitstream: no reading of its final byte ends the parse of the "
+        "requested frames at the stream's end (the stream is cut short, has bytes "
+        "appended, or holds another number of frames); check the file and the "
+        "frame count",
     -2: "corrupt bitstream: a VLC exponent beyond 14 (|v| >= 2^15), outside "
         "the encoder's domain",
+    -4: "out of memory while reading the stream's last macroblock",
 }
+
+
+class AmbiguousTailError(ValueError):
+    """Two or more readings of the stream's final byte each end the parse at
+    the stream's end, with different symbols.  readings: their bit counts r
+    in the final byte."""
+
+    def __init__(self, message: str, readings: tuple[int, ...]):
+        super().__init__(message)
+        self.readings = readings
 
 
 def _parse_frames():
     fn = _build.load("vlcparse").parse_frames
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9
+                       ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9 + [
+                       ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_long
     return fn
 
@@ -59,8 +90,12 @@ def pack_items_native(codes: np.ndarray, lengths: np.ndarray) -> bytes:
 
 def parse_body(body: bytes, nframes: int, height: int, width: int, period: int):
     """Parse the bitstream body into fixed-shape symbol arrays: y/cb/cr_scan
-    and mv_diff int16, the flags int8.  Raises ValueError on a truncated
-    stream and on a code outside the encoder's VLC domain."""
+    and mv_diff int16, the flags int8.  The final byte is read by the
+    writer's tail convention (module docstring).  Raises ValueError when no
+    reading of it ends the parse at the stream's end ("truncated
+    bitstream"), when two readings give different symbols ("ambiguous
+    stream tail", AmbiguousTailError), and on a code outside the encoder's
+    VLC domain."""
     mbh, mbw = height // 16, width // 16
     gh, gw = 2 * mbh, 2 * mbw
     out = dict(
@@ -74,12 +109,23 @@ def parse_body(body: bytes, nframes: int, height: int, width: int, period: int):
         cr_acflag=np.zeros((nframes, mbh, mbw), np.int8),
         mv_diff=np.zeros((nframes, mbh, mbw, 2), np.int16),
     )
+    readings = ctypes.c_int(0)
     used = _parse_frames()(
         body, len(body), nframes, mbh, mbw, period,
         *(out[k].ctypes.data_as(ctypes.c_void_p) for k in (
             "y_scan", "y_acflag", "mpm", "mode_bit", "cb_scan", "cb_acflag",
             "cr_scan", "cr_acflag", "mv_diff")),
+        ctypes.byref(readings),
     )
+    if used == -3:
+        rs = tuple(r for r in range(8) if readings.value >> r & 1)
+        raise AmbiguousTailError(
+            f"ambiguous stream tail: the final byte {body[-1]:#010b} read with {list(rs)} "
+            "bits each ends the parse at the stream's end, with different symbols in the "
+            "last macroblock; the reference's tail convention (the last bits kept low in "
+            "the final byte, no bit count) cannot tell them apart, so no reading is "
+            "returned.  Re-encode the sequence (another QP or frame count changes the "
+            "tail) if it must be decoded", rs)
     if used < 0:
         raise ValueError(_ERRORS[used])
     return out

@@ -5,15 +5,24 @@
  * in Python costs minutes per 300-frame sequence, so the parse runs here and
  * hands fixed-shape symbol arrays to the batched inverse pipeline on the
  * device.  A copy of the JAX package's parser (icspcodec_tpu/runtime/
- * vlcparse.c, parse_frames and its helpers), with two changes:
+ * vlcparse.c, parse_frames and its helpers), with three changes:
  *
  *  - read_vlc rejects an exponent beyond 14.  The encoder's VLC domain is
  *    |v| < 2^15 (bitstream_device.vlc_encode_dev), so a longer prefix only
  *    comes from a corrupt or hostile stream; there `1 << exp` would be
  *    undefined from exp 31 on.  parse_frames returns -2 for such a code.
  *  - Every symbol therefore fits int16, and the outputs are narrow: int16
- *    coefficients and MV differences, int8 flags.  The values are the JAX
- *    parser's.
+ *    coefficients and MV differences, int8 flags.
+ *  - The final byte is read the way the writer writes it (pack_items below:
+ *    its last r bits kept LOW), where the JAX parser reads it MSB-first and
+ *    so can misread the last bits of any stream whose final byte is not
+ *    zero.
+ *    The end is checked: parse_frames returns -1 when no reading of that
+ *    byte ends the parse at the stream's end (a stream cut short, extended,
+ *    or parsed for another frame count), and -3 when two readings do with
+ *    different symbols, which the format cannot tell apart.  On every other
+ *    stream the values are the JAX parser's reading of the stream with its
+ *    final byte's bits moved to the high end.
  *
  * pack_items, the packer behind the host writer (bitstream.py), is the JAX
  * package's unchanged.
@@ -26,10 +35,14 @@
  */
 #include <stdint.h>
 #include <stddef.h>
+#include <stdlib.h>
+#include <string.h>
 
 #define VLC_MAX_EXP 14   /* |v| < 2^15: the encoder's VLC domain */
 #define ERR_TRUNCATED (-1)
 #define ERR_BAD_CODE (-2)
+#define ERR_AMBIGUOUS (-3)
+#define ERR_NO_MEMORY (-4)
 
 typedef struct {
     const uint8_t *data;
@@ -105,8 +118,118 @@ static long parse_coeff_block(BitReader *br, int16_t *scan, int8_t *acflag) {
     return 0;
 }
 
-/* Returns bits consumed, ERR_TRUNCATED on truncation, or ERR_BAD_CODE on a
- * VLC outside the encoder's domain. */
+/* The outputs of parse_frames, and one macroblock's symbols set aside while
+ * the stream's last macroblock is read under each reading of the tail. */
+typedef struct {
+    int16_t *y_scan; int8_t *y_acflag, *mpm, *mode_bit;
+    int16_t *cb_scan; int8_t *cb_acflag;
+    int16_t *cr_scan; int8_t *cr_acflag;
+    int16_t *mv_diff;
+} Out;
+
+typedef struct {
+    int16_t y_scan[4][64]; int8_t y_acflag[4], mpm[4], mode_bit[4];
+    int16_t cb_scan[64], cr_scan[64]; int8_t cb_acflag, cr_acflag;
+    int16_t mv[2];
+} MbSymbols;
+
+/* Parse the stream's macroblocks first .. last-1, counted over the frames in
+ * order (macroblock mb of frame n is n*mbh*mbw + mb), into the outputs.
+ * Returns 0, or the first error. */
+static long parse_mbs(BitReader *br, const Out *o, long first, long last, int mbh, int mbw,
+                      int period) {
+    int16_t *y_scan = o->y_scan, *cb_scan = o->cb_scan, *cr_scan = o->cr_scan;
+    int16_t *mv_diff = o->mv_diff;
+    int8_t *y_acflag = o->y_acflag, *mpm = o->mpm, *mode_bit = o->mode_bit;
+    int8_t *cb_acflag = o->cb_acflag, *cr_acflag = o->cr_acflag;
+    int gw = 2 * mbw;
+    long nmb = (long)mbh * mbw, ystride = (long)(2 * mbh) * gw;
+    long err, i = first;
+    for (int n = (int)(first / nmb); i < last; n++) {
+        int is_intra = (period == 0) || (period >= 1 && n % period == 0);
+        for (int mb = (int)(i % nmb); mb < nmb && i < last; mb++, i++) {
+            int by = mb / mbw, bx = mb % mbw;
+            if (!is_intra) {
+                if (get_bit(br) < 0) return ERR_TRUNCATED;   /* mv mode flag */
+                int16_t *mv = mv_diff + ((long)n * nmb + mb) * 2;
+                if ((err = read_vlc(br, &mv[0])) < 0) return err;
+                if ((err = read_vlc(br, &mv[1])) < 0) return err;
+            }
+            for (int k = 0; k < 4; k++) {
+                int gy = 2 * by + (k >> 1), gx = 2 * bx + (k & 1);
+                long gidx = (long)n * ystride + (long)gy * gw + gx;
+                if (is_intra) {
+                    int f1 = get_bit(br), f2 = get_bit(br);
+                    if (f1 < 0 || f2 < 0) return ERR_TRUNCATED;
+                    mpm[gidx] = (int8_t)f1;
+                    mode_bit[gidx] = (int8_t)f2;
+                }
+                if ((err = parse_coeff_block(br, y_scan + gidx * 64, y_acflag + gidx)) < 0)
+                    return err;
+            }
+            long cidx = (long)n * nmb + mb;
+            if ((err = parse_coeff_block(br, cb_scan + cidx * 64, cb_acflag + cidx)) < 0)
+                return err;
+            if ((err = parse_coeff_block(br, cr_scan + cidx * 64, cr_acflag + cidx)) < 0)
+                return err;
+        }
+    }
+    return 0;
+}
+
+/* Copy macroblock mb of frame n between the outputs and s (to_out: s into
+ * the outputs). */
+static void mb_symbols(const Out *o, int n, int mb, int mbh, int mbw, MbSymbols *s,
+                       int to_out) {
+    int by = mb / mbw, bx = mb % mbw, gw = 2 * mbw;
+    long cidx = (long)n * mbh * mbw + mb;
+    for (int k = 0; k < 4; k++) {
+        long g = (long)n * (2 * mbh) * gw + (long)(2 * by + (k >> 1)) * gw + 2 * bx + (k & 1);
+        if (to_out) {
+            memcpy(o->y_scan + g * 64, s->y_scan[k], sizeof s->y_scan[k]);
+            o->y_acflag[g] = s->y_acflag[k];
+            o->mpm[g] = s->mpm[k];
+            o->mode_bit[g] = s->mode_bit[k];
+        } else {
+            memcpy(s->y_scan[k], o->y_scan + g * 64, sizeof s->y_scan[k]);
+            s->y_acflag[k] = o->y_acflag[g];
+            s->mpm[k] = o->mpm[g];
+            s->mode_bit[k] = o->mode_bit[g];
+        }
+    }
+    if (to_out) {
+        memcpy(o->cb_scan + cidx * 64, s->cb_scan, sizeof s->cb_scan);
+        memcpy(o->cr_scan + cidx * 64, s->cr_scan, sizeof s->cr_scan);
+        o->cb_acflag[cidx] = s->cb_acflag;
+        o->cr_acflag[cidx] = s->cr_acflag;
+        memcpy(o->mv_diff + cidx * 2, s->mv, sizeof s->mv);
+    } else {
+        memcpy(s->cb_scan, o->cb_scan + cidx * 64, sizeof s->cb_scan);
+        memcpy(s->cr_scan, o->cr_scan + cidx * 64, sizeof s->cr_scan);
+        s->cb_acflag = o->cb_acflag[cidx];
+        s->cr_acflag = o->cr_acflag[cidx];
+        memcpy(s->mv, o->mv_diff + cidx * 2, sizeof s->mv);
+    }
+}
+
+/* Parse nframes frames of a stream written by the reference's convention
+ * (pack_items below): the final byte t keeps the stream's last r bits, r in
+ * 0..7, in its LOW positions, and r = 0 is the zero byte the writer appends
+ * to a byte-aligned stream.  The stream carries no r, so every r with
+ * t < 2^r is a reading; a reading is accepted when the stream, t moved to
+ * its high end ((t << (8 - r)) & 0xFF), parses to exactly 8*(nbytes-1) + r
+ * bits.
+ *
+ * Every macroblock but the last lies before the final byte (a macroblock
+ * takes at least 6 x 66 bits), so those are parsed once on the bytes as they
+ * are, limited to 8*(nbytes-1) bits; only the last macroblock is parsed once
+ * a reading, from its saved bit position.
+ *
+ * Returns the bits of the accepted reading; ERR_TRUNCATED when no reading
+ * is accepted (the stream ends inside its last macroblock or runs on past
+ * it); ERR_BAD_CODE on a VLC outside the encoder's domain before the last
+ * macroblock; ERR_AMBIGUOUS when accepted readings give different symbols.
+ * *readings gets the mask of accepted r (bit r). */
 long parse_frames(
     const uint8_t *data, long nbytes, int nframes, int mbh, int mbw, int period,
     int16_t *y_scan,    /* nframes * (2*mbh) * (2*mbw) * 64 */
@@ -117,42 +240,53 @@ long parse_frames(
     int8_t *cb_acflag,  /* nframes * mbh * mbw               */
     int16_t *cr_scan,
     int8_t *cr_acflag,
-    int16_t *mv_diff    /* nframes * mbh * mbw * 2           */
+    int16_t *mv_diff,   /* nframes * mbh * mbw * 2           */
+    int *readings
 ) {
-    BitReader br = { data, nbytes * 8, 0 };
-    int gw = 2 * mbw;
-    long ystride = (long)(2 * mbh) * gw;
-    long err;
-    for (int n = 0; n < nframes; n++) {
-        int is_intra = (period == 0) || (period >= 1 && n % period == 0);
-        for (int mb = 0; mb < mbh * mbw; mb++) {
-            int by = mb / mbw, bx = mb % mbw;
-            if (!is_intra) {
-                if (get_bit(&br) < 0) return ERR_TRUNCATED;   /* mv mode flag */
-                int16_t *mv = mv_diff + ((long)n * mbh * mbw + mb) * 2;
-                if ((err = read_vlc(&br, &mv[0])) < 0) return err;
-                if ((err = read_vlc(&br, &mv[1])) < 0) return err;
-            }
-            for (int k = 0; k < 4; k++) {
-                int gy = 2 * by + (k >> 1), gx = 2 * bx + (k & 1);
-                long gidx = (long)n * ystride + (long)gy * gw + gx;
-                if (is_intra) {
-                    int f1 = get_bit(&br), f2 = get_bit(&br);
-                    if (f1 < 0 || f2 < 0) return ERR_TRUNCATED;
-                    mpm[gidx] = (int8_t)f1;
-                    mode_bit[gidx] = (int8_t)f2;
-                }
-                if ((err = parse_coeff_block(&br, y_scan + gidx * 64, y_acflag + gidx)) < 0)
-                    return err;
-            }
-            long cidx = (long)n * mbh * mbw + mb;
-            if ((err = parse_coeff_block(&br, cb_scan + cidx * 64, cb_acflag + cidx)) < 0)
-                return err;
-            if ((err = parse_coeff_block(&br, cr_scan + cidx * 64, cr_acflag + cidx)) < 0)
-                return err;
+    Out o = { y_scan, y_acflag, mpm, mode_bit, cb_scan, cb_acflag, cr_scan, cr_acflag,
+              mv_diff };
+    long nmb = (long)mbh * mbw;
+    *readings = 0;
+    if (nbytes < 1) return ERR_TRUNCATED;
+    if (nframes < 1 || nmb < 1) {       /* nothing to read: the writer's zero byte */
+        if (nbytes != 1 || data[0] != 0) return ERR_TRUNCATED;
+        *readings = 1;
+        return 0;
+    }
+    long last = (long)nframes * nmb - 1;      /* the last macroblock */
+    BitReader br = { data, (nbytes - 1) * 8, 0 };
+    long err = parse_mbs(&br, &o, 0, last, mbh, mbw, period);
+    if (err < 0) return err;
+    /* the last macroblock, on a copy of the bytes from its first one */
+    int n = nframes - 1, mb = (int)(nmb - 1);
+    long first = br.pos >> 3, len = nbytes - first;
+    uint8_t *tail = (uint8_t *)malloc((size_t)len);
+    if (!tail) return ERR_NO_MEMORY;
+    memcpy(tail, data + first, (size_t)len);
+    uint8_t t = data[nbytes - 1];
+    MbSymbols got, other;
+    memset(&got, 0, sizeof got);        /* memcmp below: no byte left unset */
+    memset(&other, 0, sizeof other);
+    long used = ERR_TRUNCATED;
+    int ambiguous = 0;
+    for (int r = 0; r < 8; r++) {
+        if (t >> r) continue;                           /* t < 2^r */
+        tail[len - 1] = (uint8_t)((t << (8 - r)) & 0xFF);
+        BitReader tb = { tail, (len - 1) * 8 + r, br.pos & 7 };
+        if (parse_mbs(&tb, &o, last, last + 1, mbh, mbw, period) < 0 || tb.pos != tb.nbits)
+            continue;
+        *readings |= 1 << r;
+        if (used < 0) {
+            mb_symbols(&o, n, mb, mbh, mbw, &got, 0);
+            used = (nbytes - 1) * 8 + r;
+        } else {
+            mb_symbols(&o, n, mb, mbh, mbw, &other, 0);
+            ambiguous |= memcmp(&got, &other, sizeof got) != 0;
         }
     }
-    return br.pos;
+    free(tail);
+    if (used >= 0) mb_symbols(&o, n, mb, mbh, mbw, &got, 1);
+    return ambiguous ? ERR_AMBIGUOUS : used;
 }
 
 /* MSB-first bit packer: items are (code, length) pairs with right-aligned

@@ -3,8 +3,9 @@
 
 * exact mode: byte-identical bitstreams and identical recon planes;
 * the sha256 that chip_smoke.py checks on the card is the JAX package's;
-* fast mode: the JAX decoder reads the port's stream, and its PSNR-Y is
-  within 0.05 dB of the JAX fast encode's;
+* fast mode: the JAX decoder reads the port's stream (its final byte
+  realigned, as the JAX parser needs), and its PSNR-Y is within 0.05 dB of
+  the JAX fast encode's;
 * the entry point: no silent CPU fallback, sharding refused (with either
   writer), and at intra periods 2 and 10 the parser reads back every
   symbol the encoder emitted.
@@ -24,6 +25,7 @@ from icspcodec_torch import codec as tcodec
 from icspcodec_torch.bitstream_device import frame_items_dev
 from icspcodec_torch.config import CodecConfig as TConfig
 from icspcodec_torch.runtime import parse_body
+from tests.torch_tail import jax_realigned
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -69,8 +71,8 @@ def test_fast_encode_decodes_with_jax():
     kw = dict(width=96, height=64, qp_dc=16, qp_ac=16, precision="fast", intra_period=1)
     bt, rt = tcodec.encode(y, cb, cr, TConfig(**kw), device="cpu")
     bj, _ = jcodec.encode(y, cb, cr, JConfig(**kw))
-    dt = jcodec.decode(bt, 2, precision="exact")
-    dj = jcodec.decode(bj, 2, precision="exact")
+    dt = jcodec.decode(jax_realigned(bt, 2), 2, precision="exact")
+    dj = jcodec.decode(jax_realigned(bj, 2), 2, precision="exact")
     assert dt["y"].shape == y.shape
     assert abs(_psnr(dt["y"], y) - _psnr(dj["y"], y)) <= 0.05
     assert abs(_psnr(rt["y"], y) - _psnr(dj["y"], y)) <= 0.05
@@ -98,12 +100,10 @@ def test_configs_outside_the_slice_are_refused(bad):
 def test_inter_encode_symbols_read_back(period):
     """11 frames: five full GOPs and a one-frame intra GOP at period 2, one
     full GOP and a one-frame intra GOP at period 10.  The port's parser
-    reads back exactly the symbols the encoder emitted, frame by frame.
-
-    The writer keeps the stream's final partial byte in its LOW bits (the
-    reference's tail convention) and the parser, like the JAX package's,
-    reads every byte MSB-first, so the stream's last few bits read back
-    otherwise; the test moves them to the high bits before parsing."""
+    reads back exactly the symbols the encoder emitted, frame by frame,
+    from the stream's raw bytes: it reads the final partial byte, whose
+    bits the writer keeps LOW (the reference's tail convention), as the
+    writer wrote it."""
     y, cb, cr = _frames(period, f=11)
     cfg = TConfig(width=96, height=64, intra_period=period, precision="fast")
     bits, rec = tcodec.encode(y, cb, cr, cfg, device="cpu")
@@ -114,10 +114,8 @@ def test_inter_encode_symbols_read_back(period):
     assert sorted(np.concatenate([iidx, pidx]).tolist()) == list(range(11))
     nbits = sum(int(frame_items_dev(s, intra)[1].sum()) for s, intra in ((isyms, True),
                                                                          (psyms, False)))
-    body = bytearray(bits[14:])
-    assert len(body) == nbits // 8 + 1
-    body[-1] = (body[-1] << (8 - nbits % 8)) & 0xFF if nbits % 8 else body[-1]
-    parsed = parse_body(bytes(body), 11, 64, 96, period)
+    assert len(bits) - 14 == nbits // 8 + 1
+    parsed = parse_body(bits[14:], 11, 64, 96, period)
     for syms, idx in ((isyms, iidx), (psyms, pidx)):
         for k, v in syms.items():
             assert np.array_equal(parsed[k][idx], v.numpy()), k

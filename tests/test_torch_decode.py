@@ -6,7 +6,9 @@ at most 6 frames; the plain versions of the kernels on the CPU).
 * exact mode: codec.decode gives the JAX package's planes byte for byte,
   for all-intra streams at three QP pairs and for inter streams at period
   3 with a shorter last GOP, one of them from static-trigger content whose
-  MVs leave the canonical spiral;
+  MVs leave the canonical spiral.  The JAX package decodes each stream as
+  written: with its final byte realigned (tests/torch_tail.py), since its
+  parser reads that byte MSB-first where the writer keeps the bits low;
 * the digests chip_smoke.py checks on the card are the JAX decode's;
 * fast mode: PSNR-Y within 0.05 dB of the JAX fast decode (float32 sums
   in another order can move a pixel on a truncation boundary by one);
@@ -33,6 +35,7 @@ from icspcodec_torch.engine import wavefront as twf
 from icspcodec_torch.ops.dc_fused import idc_dpcm_fused
 from icspcodec_torch.ops.intra_decode_fused import intra_luma_decode_fused
 from icspcodec_torch.runtime import parse_body
+from tests.torch_tail import jax_readings, jax_realigned
 
 F, H, W = 5, 64, 96
 
@@ -145,7 +148,7 @@ def test_intra_luma_decode_clamps_and_refuses_odd_width():
 @pytest.mark.parametrize("qdc,qac", [(16, 16), (8, 16), (1, 1)])
 def test_exact_intra_decode_identical_to_jax(qdc, qac):
     data = _intra_stream(qdc, qac)
-    dj = jcodec.decode(data, 2, precision="exact")
+    dj = jcodec.decode(jax_realigned(data, 2), 2, precision="exact")
     dt = tcodec.decode(data, 2, precision="exact", device="cpu")
     for k in ("y", "cb", "cr"):
         assert dt[k].dtype == np.uint8 and np.array_equal(dt[k], dj[k]), k
@@ -155,12 +158,12 @@ def test_exact_intra_decode_identical_to_jax(qdc, qac):
 def test_exact_inter_decode_identical_to_jax(content):
     """Period 3, 5 frames: one full GOP and a GOP of 2."""
     data = _inter_stream(content)
-    dj = jcodec.decode(data, F, precision="exact")
+    dj = jcodec.decode(jax_realigned(data, F), F, precision="exact")
     dt = tcodec.decode(data, F, precision="exact", device="cpu")
     for k in ("y", "cb", "cr"):
         assert np.array_equal(dt[k], dj[k]), k
     syms = parse_body(data[14:], F, H, W, 3)
-    jsyms = jparse_body(data[14:], F, H, W, 3)
+    jsyms = jparse_body(jax_realigned(data, F)[14:], F, H, W, 3)
     assert all(np.array_equal(syms[k], jsyms[k]) for k in syms)
     mv = tinter.mv_reconstruct_scan(torch.from_numpy(syms["mv_diff"][[1, 2, 4]])).numpy()
     canon = {tuple(v) for v in tables.NEG_SPIRAL.tolist()}
@@ -174,14 +177,17 @@ def test_exact_inter_decode_identical_to_jax(content):
 def test_pinned_decode_digests_are_the_jax_decode():
     """The two digests chip_smoke.py checks on the card: the exact decode of
     the XCHECK stream and of the seeded inter stream (MVs outside the
-    padded frame included) by the JAX package and by the port."""
+    padded frame included) by the JAX package (of the stream realigned)
+    and by the port."""
     xb = tcodec.encode(*chip_smoke.xcheck_input(), TConfig(**chip_smoke.XCHECK_CFG),
                        return_recon=False, device="cpu")[0]   # = the JAX stream (sha256 pinned)
     ib = chip_smoke.inter_xcheck_stream()
     nf = chip_smoke.INTER_XCHECK["nframes"]
+    assert sorted(jax_readings(xb, 2)) == [chip_smoke.XCHECK_TAIL_BITS]
     for data, n, pinned in ((xb, 2, chip_smoke.XCHECK_DECODE_SHA256),
                             (ib, nf, chip_smoke.INTER_XCHECK_DECODE_SHA256)):
-        assert chip_smoke.planes_digest(jcodec.decode(data, n, precision="exact")) == pinned
+        assert chip_smoke.planes_digest(jcodec.decode(jax_realigned(data, n), n,
+                                                      precision="exact")) == pinned
         assert chip_smoke.planes_digest(tcodec.decode(data, n, device="cpu")) == pinned
 
 
@@ -191,7 +197,7 @@ def test_fast_decode_within_tolerance_of_jax(period):
         y, data = _content(7)[0], _inter_stream("pan")
     else:
         y, data = _content(16, f=F)[0], _intra_stream(16, 16, "fast", f=F)
-    dj = jcodec.decode(data, F, precision="fast")
+    dj = jcodec.decode(jax_realigned(data, F), F, precision="fast")
     dt = tcodec.decode(data, F, precision="fast", device="cpu")
     for k in ("y", "cb", "cr"):
         assert dt[k].shape == dj[k].shape and dt[k].dtype == np.uint8

@@ -7,7 +7,8 @@ kernels on the CPU).
   the canonical spiral (the stateful branch ran); the sha256 that
   chip_smoke.py checks on the card is the JAX package's stream;
 * fast mode: within 0.5% of the JAX fast stream's size, PSNR-Y within
-  0.05 dB in every frame, and the JAX decoder reads the port's stream;
+  0.05 dB in every frame, and the JAX decoder reads the port's stream
+  (its final byte realigned, as the JAX parser needs);
 * on break-free content the stateful selection over kernel D's and G's
   SADs picks the fixed branch's MVs.
 """
@@ -29,6 +30,7 @@ from icspcodec_torch.ops.me_fused import sad_mc_best, sad_union_extra
 from icspcodec_torch.ops.pad import pad_image
 from icspcodec_torch.runtime import parse_body
 from test_torch_decode import F, H, W, _content, _static_content
+from tests.torch_tail import jax_realigned
 
 PERIOD = 3
 
@@ -81,7 +83,7 @@ def test_fast_inter_encode_within_tolerance_of_jax():
     bt, rt = tcodec.encode(y, cb, cr, TConfig(**_cfg("fast")), device="cpu")
     assert abs(len(bt) - len(bj)) <= 0.005 * len(bj)
     assert np.abs(_psnr(rt["y"], y) - _psnr(rj["y"], y)).max() <= 0.05
-    dt = jcodec.decode(bt, F, precision="fast")
+    dt = jcodec.decode(jax_realigned(bt, F), F, precision="fast")
     assert dt["y"].shape == y.shape
     assert np.abs(_psnr(dt["y"], y) - _psnr(rt["y"], y)).max() <= 0.05
 

@@ -84,11 +84,15 @@ def test_oracle_bytes_equal_the_port_encode(qdc, qac, period):
 
 
 def test_oracle_gives_the_pinned_hashes():
-    """What chip_smoke.py's phase 19 checks, on the CPU."""
+    """What chip_smoke.py's phase 19 checks, on the CPU.  The oracle, a copy
+    of the reference, reads the stream's final byte MSB-first, where the
+    writer keeps its bits low: it decodes the stream as written once that
+    byte is realigned."""
     bits = oracle.encode(_seq(chip_smoke.xcheck_input()), chip_smoke.XCHECK_CFG["qp_dc"],
                          chip_smoke.XCHECK_CFG["qp_ac"], 0)[0]
     assert hashlib.sha256(bits).hexdigest() == chip_smoke.XCHECK_SHA256
-    assert chip_smoke.planes_digest(_stack(oracle.decode(bits, 2))) == \
+    realigned = bits[:14] + chip_smoke.realign_tail(bits[14:], chip_smoke.XCHECK_TAIL_BITS)
+    assert chip_smoke.planes_digest(_stack(oracle.decode(realigned, 2))) == \
         chip_smoke.XCHECK_DECODE_SHA256
     cfg = chip_smoke.INTER_ENC_CFG
     bits = oracle.encode(_seq(chip_smoke.static_trigger_input()), cfg["qp_dc"], cfg["qp_ac"],

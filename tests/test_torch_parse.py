@@ -21,6 +21,7 @@ from icspcodec_torch import tables
 from icspcodec_torch.codec import write_stream
 from icspcodec_torch.ops import _build
 from icspcodec_torch.runtime import parse_body
+from tests.torch_tail import jax_realigned
 
 H, W = 64, 96
 
@@ -48,15 +49,22 @@ def _jax_stream(seed, nframes, period, qdc=8, qac=16):
 
 @pytest.mark.parametrize("nframes,period", [(3, 0), (5, 3), (4, 2)])
 def test_parse_body_equals_jax(nframes, period):
+    """The port parses the raw bytes to the symbols the JAX writer wrote,
+    and to the JAX parser's reading of the stream realigned (the JAX parser
+    reads the final byte MSB-first, where the writer keeps its bits low)."""
     data = _jax_stream(nframes + period, nframes, period)
     hj = joracle.parse_header(data[:14])
     assert tables.parse_header(data[:14]) == hj == (H, W, 8, 16, period)
-    sj = jparse_body(data[14:], nframes, H, W, period)
+    sj = jparse_body(jax_realigned(data, nframes)[14:], nframes, H, W, period)
     st = parse_body(data[14:], nframes, H, W, period)
     assert sorted(sj) == sorted(st)
     for k in sj:
         assert st[k].dtype == (np.int16 if k.endswith("scan") or k == "mv_diff" else np.int8)
         assert np.array_equal(sj[k], st[k]), k
+    si, ii, sp, pi = _groups(nframes + period, nframes, period)
+    for syms, idx in ((si, ii), (sp, pi)):
+        for k, v in (syms or {}).items():
+            assert np.array_equal(st[k][idx], v), k
 
 
 @pytest.mark.parametrize("nframes,period", [(3, 1), (5, 3)])
