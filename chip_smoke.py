@@ -1731,8 +1731,8 @@ def main() -> int:
 
     # ---- 17. GOP shards on the card ---------------------------------------
     # two shards on the one card (a device list naming it twice): each shard
-    # runs its engine, with its kernels, from a thread of its own; the host
-    # writer packs (the sharded path's entropy gating, as the JAX package's)
+    # runs its engine, with its kernels, from a thread of its own; the
+    # gathered symbols are entropy-coded on the card, as the unsharded ones
     mesh2 = ["cuda:0"] * 2
     cfg10s = CodecConfig(width=W, height=H, qp_dc=16, qp_ac=16, intra_period=period,
                          precision="fast", gop_shards=2)

@@ -58,8 +58,8 @@ def _parser() -> argparse.ArgumentParser:
     enc.add_argument(
         "--entropy", choices=["auto", "device", "host"], default="auto",
         help="where entropy coding + bit packing run: on the card (only "
-             "packed frames cross to the host) or on the host; bytes "
-             "identical either way",
+             "packed frames cross to the host; with shards, on the first "
+             "device of the list) or on the host; bytes identical either way",
     )
     enc.add_argument("-o", default=None, help="output bitstream path")
     enc.add_argument("--recon", default=None, help="write recon YUV here")

@@ -30,8 +30,10 @@ Sharding, as in the JAX package, over a list of devices: cfg.gop_shards > 1
 splits the GOP batches over the list (parallel/gop.py: each shard runs the
 engines above, with their kernels, on its device) and cfg.tile_shards > 1
 splits each frame's MB columns over it (parallel/tiles.py: the tiled
-wavefronts with halo exchange).  Both write with the host writer, and give
-the unsharded bytes and planes at any shard count.
+wavefronts with halo exchange).  Both gather their symbols on the list's
+first device and entropy-code them there, as the unsharded path does (or
+with the numpy writer under cfg.entropy="host"), and give the unsharded
+bytes and planes at any shard count.
 """
 from __future__ import annotations
 
@@ -254,25 +256,21 @@ def encode(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, cfg: CodecConfig,
     MB columns over it (parallel/tiles.py).  Then device is that list, one
     device per shard (it may name one device more than once), or None for
     every CUDA device; a single device raises ValueError, as do fewer
-    devices than shards.  The sharded paths write with the host writer
-    (entropy="device" raises ValueError there) and give the unsharded bytes
-    and recon at any shard count.
+    devices than shards.  The sharded paths gather their symbols on the
+    list's first device, where cfg.entropy routes them as above, and give
+    the unsharded bytes and recon at any shard count.
     """
     _check_supported(cfg)
     if y.shape[0] == 0:
         raise ValueError("need at least one frame")
     mesh = shard_mesh(cfg.gop_shards, cfg.tile_shards, device)
-    if cfg.entropy == "device" and mesh is not None:
-        raise ValueError("entropy='device' requires the unsharded path "
-                         "(gop_shards == tile_shards == 1); use entropy='auto'")
     dev = resolve_device(device) if mesh is None else mesh[0]
     yt, cbt, crt = (torch.from_numpy(np.ascontiguousarray(a, np.uint8)).to(dev)
                     for a in (y, cb, cr))
     (isyms, iidx), inter, rec = encode_symbols(yt, cbt, crt, cfg, return_recon, mesh)
     psyms, pidx = inter if inter is not None else (None, None)
     args = (y.shape[0], cfg.height, cfg.width, cfg.qp_dc, cfg.qp_ac, cfg.intra_period)
-    # the sharded paths write with the host writer, as the JAX package's do
-    if cfg.entropy == "host" or mesh is not None:
+    if cfg.entropy == "host":
         bits = write_bitstream_grouped(host_symbols(isyms), iidx, host_symbols(psyms), pidx,
                                        *args)
     else:

@@ -25,7 +25,7 @@ class CodecConfig:
     #                            MB-column sharding; must divide width/16
     entropy: str = "auto"      # "device": entropy-code + bit-pack on the
     #                            accelerator; "host": pack on the host;
-    #                            "auto": device on the plain path.  Output
+    #                            "auto": device, sharded or not.  Output
     #                            bytes identical.
 
     def __post_init__(self):

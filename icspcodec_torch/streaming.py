@@ -203,8 +203,8 @@ def encode_streaming(y, cb, cr, cfg: CodecConfig, workdir: str, seq_name: str = 
             rounds[-1].append((g, idxs))
         else:
             rounds.append([(g, idxs)])
-    # device entropy as codec.encode gates it: the sharded path writes host
-    # chunks
+    # the sharded path writes host chunks (their kind is part of the resume
+    # contract)
     dev_entropy = mesh is None and cfg.entropy != "host"
     for batch in rounds:
         t0 = time.time()

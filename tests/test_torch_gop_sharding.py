@@ -8,8 +8,7 @@ plain versions of the kernels in every shard.
   bytes, recon and planes, at period 0 and 3, with GOP counts the shard
   count does not divide (8 frames: 2 full GOPs of 3 and one of 2), in both
   precisions; encode_streaming at gop_shards 2 likewise, with a resume;
-* the refusals: fewer devices than shards, entropy="device" with shards, a
-  single device with shards;
+* the refusals: fewer devices than shards, a single device with shards;
 * the CLI with --gopShards 2 and a device list;
 * slow: the JAX package's own sharded encode (gop_shards=3 on its virtual
   CPU devices) gives the same bytes.
@@ -121,9 +120,6 @@ def test_sharding_refusals(tmp_path):
             codec.encode(*frames, cfg)
         with pytest.raises(ValueError, match="devices are available"):
             codec.decode(b"", 1, gop_shards=2)
-    with pytest.raises(ValueError, match="entropy='device'"):
-        codec.encode(*frames, _cfg("fast", 3, gop_shards=2, entropy="device"),
-                     device=["cpu"] * 2)
     with pytest.raises(ValueError, match=r"list of devices.*\['cpu'\] \* 2"):
         codec.encode(*frames, cfg, device="cpu")
     with pytest.raises(ValueError, match="list of devices"):
